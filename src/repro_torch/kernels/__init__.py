@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels of the port, with their plain PyTorch
+versions (``ref``) and dispatching wrappers (``ops``)."""
