@@ -54,7 +54,7 @@ def phase(n: int, msg: str) -> None:
     print(f"[phase {n}] {msg}", flush=True)
 
 
-def card() -> str:
+def card() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: chip_smoke.py needs an "
                          "NVIDIA GPU")
@@ -62,7 +62,6 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     phase(1, f"card: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    return smi
 
 
 def build() -> None:
@@ -153,7 +152,7 @@ def chunk_kernel_vs_plain() -> None:
              f"(tol 1e-4), max |dq| {dq:.3e} (tol 1e-3), masks equal")
 
 
-def slice_run() -> tuple[int, float]:
+def slice_run() -> int:
     from repro_torch.core import fairness, lifecycle
     from repro_torch.fl.simulation import run_fl_experiment
     from repro_torch.kernels import ops
@@ -204,7 +203,7 @@ def slice_run() -> tuple[int, float]:
              f"{loop_s[0] / trained * 1e3:.1f} ms/round (rest: data "
              f"set-up and final eval); fedavg_agg_quality launches "
              f"{launches}")
-    return launches, wall
+    return launches
 
 
 def time_ms(fn, samples: int = 20, calls: int = 10) -> float:
@@ -254,7 +253,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     chunk_kernel_vs_plain()
-    launches, _ = slice_run()
+    launches = slice_run()
     t = timing()
     record = {"name": "fedavg_agg_quality", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/fedavg_agg_quality.cu",

@@ -131,7 +131,7 @@ class TaskRequest:
     # "iid_subsets", "random" -> "random_partition"); an explicit name
     # always wins over the alias
     round_chunk: int = 1                  # rounds per trainer dispatch (>1 =
-    # chunked driver; requires a chunk-capable Trainer)
+    # chunked rounds; requires a chunk-capable Trainer)
     admit_joiners: bool = True            # churn: admit clients registered
     # after stage 1 at the next PERIOD_CHECKPOINT, budget permitting
     overschedule_factor: float = 1.0      # straggler mitigation: dispatch
@@ -550,7 +550,7 @@ class TaskState:
         return state
 
 
-# Issue/title name for the explicit service-side state.
+# Alias naming the explicit service-side state.
 ServiceState = TaskState
 
 
@@ -1194,9 +1194,9 @@ class RejectedTask:
     object echoed back (resubmitting it later is exactly equivalent to
     the original submit), and ``queued`` is the INTAKE backlog depth at
     rejection time — a congestion signal for sizing the retry backoff.
-    The online driver (:class:`repro_torch.core.driver.OnlineDriver`) requeues
-    rejected tasks from this echo alone; tests/test_workload.py asserts
-    the echo identity and that no rejected task is ever dropped."""
+    An online harness can requeue rejected tasks from this echo alone
+    (the reference's ``OnlineDriver``, not ported yet: ROADMAP.md
+    Queue 1 item 5)."""
 
     task: TaskRequest
     reason: str

@@ -1,6 +1,6 @@
 """The device-resident round data plane in PyTorch.
 
-``make_fl_rounds_scan`` builds the chunk driver of the paper's FedAvg
+``make_fl_rounds_scan`` builds the chunk function of the paper's FedAvg
 rounds: S rounds per call over precomputed schedule tensors (padded
 subsets/weights from stage 2). Each round draws its client batches and
 dropout mask on the device (fl.device_data), runs E local SGD steps per
@@ -84,7 +84,7 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
                         server_lr: float = 1.0, dropout_rate: float = 0.0,
                         compression=None, server_opt=None,
                         aggregate: Callable = kops.fedavg_agg_quality):
-    """Chunked multi-round driver: S rounds per call.
+    """Chunked multi-round function: S rounds per call.
 
     Returns ``chunk_fn(params, data, schedule, base_key)`` where
 

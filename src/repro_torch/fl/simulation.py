@@ -5,7 +5,7 @@ paper's Figs. 5/6 experiments.
 
 :class:`DeviceFLSim` is the device-resident data plane: the partitioned
 dataset is staged on the device once (fl.device_data.DeviceDataset) and
-``run_rounds`` drives S rounds per call through the chunk driver
+``run_rounds`` drives S rounds per call through the chunk function
 (fl.round.make_fl_rounds_scan) with on-device batch gather, dropout
 masks, and the fused aggregation + quality kernel. It is an
 ``AsyncTrainer``: ``dispatch_rounds`` enqueues the chunk's work on the
@@ -128,7 +128,7 @@ class _EvalCache:
 
 
 class DeviceFLSim(_EvalCache):
-    """Device-resident trainer: staged dataset + chunk driver.
+    """Device-resident trainer: staged dataset + chunk function.
 
     Implements the ``core.lifecycle.AsyncTrainer`` protocol — the
     chunked ``run_rounds`` (driven with ``task.round_chunk > 1``) splits
@@ -329,7 +329,7 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
     """One learning-curve run (paper Figs. 5/6): returns history + config.
 
     ``data_plane="device"`` stages the dataset on the device and runs
-    ``round_chunk`` rounds per call through the chunk driver; the
+    ``round_chunk`` rounds per call through the chunk function; the
     host-loop plane (``"host"``) is not ported yet and raises.
 
     ``selection_policy`` / ``scheduling_policy`` pick registered

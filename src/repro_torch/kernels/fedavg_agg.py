@@ -56,7 +56,7 @@ def library() -> ctypes.CDLL:
     """Compile the kernel (once per source version) and load it.
 
     ``nvcc -Xptxas -v`` output (registers, shared memory, spills) is kept
-    beside the library as ``<name>.log``. Concurrent builders each write
+    beside the library as ``<name>.log``. Concurrent builds each write
     a temporary file and rename it into place.
     """
     lib_path = _lib_path()

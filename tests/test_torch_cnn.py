@@ -5,7 +5,7 @@ across with ``params_from_jax``.
 Tolerances: both run f32 convolutions and matmuls with different
 summation orders, so logits and losses agree to ~1e-6 relative; the
 gradients chain two such convolutions backwards and are held to
-rtol 1e-4, atol 1e-5 (max-pool ties are not an issue: the inputs are
+rtol 1e-4, atol 1e-5 (max-pool ties do not matter: the inputs are
 continuous random draws).
 """
 import dataclasses

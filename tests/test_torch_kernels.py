@@ -10,7 +10,6 @@ atol 1e-5 on unit-normal data). A bf16 agg is the f32 agg rounded to
 bf16, and an ulp of difference in f32 can move that rounding by one
 bf16 ulp (rtol 2**-7).
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
