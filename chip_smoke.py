@@ -26,6 +26,7 @@ kernel record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -69,10 +70,34 @@ def build() -> None:
     t0 = time.perf_counter()
     fedavg_agg.library()
     dt = time.perf_counter() - t0
-    ptxas = " | ".join(line.strip() for line in
-                       fedavg_agg.build_log().splitlines()
-                       if "registers" in line or "spill" in line)
-    phase(2, f"built fedavg_agg_quality in {dt:.2f} s; ptxas: {ptxas}")
+    phase(2, f"built fedavg_agg_quality in {dt:.2f} s; ptxas per entry: "
+             + "; ".join(ptxas_entries(fedavg_agg.build_log())))
+
+
+def ptxas_entries(log: str) -> list[str]:
+    """One ``name<dtype,K bucket>: registers, spills`` item per kernel
+    entry of an ``nvcc -Xptxas -v`` log. Template arguments are read from
+    the mangled name (``IfLi16E`` is <f32, 16>), past any namespace."""
+    entries, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
+        if m:
+            rest = m.group(1)
+            while d := re.match(r"\d+", rest):     # <len><name> parts
+                n = int(d.group(0))
+                name, rest = rest[d.end():d.end() + n], rest[d.end() + n:]
+            targs = re.match(r"I(f|13__nv_bfloat16)Li(\d+)E", rest)
+            if targs:
+                dtype = "f32" if targs.group(1) == "f" else "bf16"
+                name += f"<{dtype},{targs.group(2)}>"
+            spill = ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            entries.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    check(bool(entries), "ptxas report lists the kernel entries")
+    return entries
 
 
 def kernel_vs_plain() -> float:

@@ -41,10 +41,9 @@ class DeviceDataset(NamedTuple):
     sizes: torch.Tensor      # (n_clients,) int64 true pool sizes
 
     @classmethod
-    def stage(cls, data, parts, device, cap: int | None = None
-              ) -> "DeviceDataset":
+    def stage(cls, data, parts, device) -> "DeviceDataset":
         """One-time host->device staging of a partitioned dataset."""
-        pools, sizes = dense_index_pools(parts, cap=cap)
+        pools, sizes = dense_index_pools(parts)
         return cls(torch.as_tensor(np.asarray(data.images), device=device),
                    torch.as_tensor(np.asarray(data.labels, np.int64),
                                    device=device),
@@ -65,7 +64,7 @@ def slot_keys(base_key: torch.Tensor, round_index, slots: torch.Tensor
 
 
 def sample_positions(base_key, round_index, n_slots: int, local_steps: int,
-                     batch_size: int, slot_offset: int = 0):
+                     batch_size: int):
     """Per-slot uniforms: ``(mask_u (*R, K), pos_u (*R, K, E, b))``.
 
     ``mask_u`` drives the dropout draw, ``pos_u`` the batch-position
@@ -74,8 +73,7 @@ def sample_positions(base_key, round_index, n_slots: int, local_steps: int,
     ``round_index`` may be a tensor of rounds (shape R), which draws a
     whole chunk at once.
     """
-    slots = torch.arange(n_slots, dtype=torch.int64,
-                         device=base_key.device) + slot_offset
+    slots = torch.arange(n_slots, dtype=torch.int64, device=base_key.device)
     ku_kb = trandom.split(slot_keys(base_key, round_index, slots))
     return (trandom.uniform(ku_kb[..., 0, :], ()),
             trandom.uniform(ku_kb[..., 1, :], (local_steps, batch_size)))

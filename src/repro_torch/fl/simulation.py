@@ -315,7 +315,7 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
                       n_train: int = 6000, n_test: int = 1500,
                       subset_size: int = 10, subset_delta: int = 3,
                       sim: SimConfig = SimConfig(),
-                      seed: int = 0, data_plane: str = "host",
+                      seed: int = 0, data_plane: str = "device",
                       round_chunk: int = 8,
                       budget: float = 1e9, n_star: int | None = None,
                       selection_policy: str | None = None,
@@ -328,9 +328,10 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
                       device=None) -> dict:
     """One learning-curve run (paper Figs. 5/6): returns history + config.
 
-    ``data_plane="device"`` stages the dataset on the device and runs
-    ``round_chunk`` rounds per call through the chunk function; the
-    host-loop plane (``"host"``) is not ported yet and raises.
+    ``data_plane="device"`` (the default, and the only plane ported)
+    stages the dataset on the device and runs ``round_chunk`` rounds per
+    call through the chunk function; the host-loop plane (``"host"``) is
+    not ported yet and raises.
 
     ``selection_policy`` / ``scheduling_policy`` pick registered
     ``core.policy`` strategies; unset (``None``), the legacy

@@ -130,13 +130,13 @@ def test_entry_points_default_to_cuda():
         simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulation.run_fl_experiment("mnist", "type2", n_clients=4,
-                                     n_train=40, n_test=10,
-                                     data_plane="device")
+                                     n_train=40, n_test=10)
 
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulation.run_fl_experiment("mnist", "type2", device="cpu")
+        simulation.run_fl_experiment("mnist", "type2", data_plane="host",
+                                     device="cpu")
     data = make_classification_data("mnist", 40, seed=0)
     parts = partition_labels(data.labels, 4, "type2", 10, seed=0)
     for kw in ({"fault_plan": object()}, {"mesh": object()},
