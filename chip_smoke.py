@@ -3,25 +3,35 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the JAX package) through its
-main path at the paper's CIFAR CNN width and holds every CUDA kernel of
-that path against its plain PyTorch version. Phases, one line each:
+paths on the card and holds every CUDA kernel of those paths against its
+plain PyTorch version. Phases, one line each:
 
 1. the card: fail without CUDA; print ``nvidia-smi`` name and power limit;
-2. build the kernels from the sources in this checkout (``nvcc`` into
-   ``build/``), with the build time;
-3. each kernel against its plain version on the card, at the main
-   path's shape and at ragged shapes, in f32 and bf16;
+2. build the kernels from the sources in this checkout (one ``nvcc`` call
+   into ``build/``), with the build time and ptxas registers and spills
+   of every kernel entry;
+3. ``fedavg_agg_quality`` against its plain version on the card, at the
+   service loop's shape and at ragged shapes, in f32 and bf16;
 4. one round chunk (S=4, CIFAR_CNN) from the same parameters through
    the kernel and through the plain aggregate (TF32 off for matmuls and
    cuDNN convolutions, so both runs are full f32);
-5. the slice: ``run_fl_experiment(..., data_plane="device")`` on the card
-   with launch counts set to 0 just before and read just after;
-6. kernel, plain version and library yardstick timed with CUDA events
-   (median of 20 samples of 10 back-to-back calls), beside the kernel's
-   bound.
+5. the service loop: ``run_fl_experiment(..., data_plane="device")`` on
+   the card with launch counts set to 0 just before and read just after;
+6. each kernel, its plain version and its library yardstick timed with
+   CUDA events (median of 20 replays of a CUDA graph of 10 back-to-back
+   calls) at the shapes its path gives it, beside the kernel's bound;
+7. ``segmented_topk`` and ``mkp_utility`` against their plain versions on
+   the card (ties, -inf padding, k up to C, ragged n and m): exact;
+8. the fleet intake: four tasks through
+   ``FLServiceProvider.select_pools_batch`` over 1,000,000 clients in 8
+   shards, routed through the per-shard frontier; picks equal the flat
+   host greedy before and after 5,000 churn events;
+9. stage 2 on the card: ``generate_subsets(backend="device")`` over task
+   0's pool equals the same call on the CPU (the plain version).
 
-Any failure raises and exits non-zero. The last two lines are the
-kernel record and ``{"ok": true, "device": {...}}``.
+Phases 8 and 9 set their kernel's launch count to 0 just before and read
+it just after. Any failure raises and exits non-zero. The last two
+lines are the kernel records and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -43,6 +53,14 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 MAIN_K, MAIN_P = 13, 1_070_794      # subset_size + delta; CIFAR_CNN params
+# The fleet: the reference's 1M-client selection record
+# (BENCH_selection.json "fleet"[0]): 8 shards of 131,072, thresholds
+# 0.05, a budget that picks about 3,846 clients; tasks at x0.5, x2, x4.
+FLEET_N, SHARD_CAP, FLEET_K = 1_000_000, 131_072, 4096
+FLEET_TH = np.full(9, 0.05)
+FLEET_BUDGETS = [78_889.4 * f for f in (1.0, 0.5, 2.0, 4.0)]
+CHURN_EVENTS = 5_000
+SUBSET_N, SUBSET_DELTA, CLASSES = 10, 3, 10
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 
 
@@ -66,12 +84,13 @@ def card() -> None:
 
 
 def build() -> None:
-    from repro_torch.kernels import fedavg_agg
+    from repro_torch.kernels import build as kbuild
     t0 = time.perf_counter()
-    fedavg_agg.library()
+    kbuild.library()
     dt = time.perf_counter() - t0
-    phase(2, f"built fedavg_agg_quality in {dt:.2f} s; ptxas per entry: "
-             + "; ".join(ptxas_entries(fedavg_agg.build_log())))
+    phase(2, f"built {', '.join(p.name for p in kbuild.sources())} in one "
+             f"nvcc call, {dt:.2f} s; ptxas per entry: "
+             + "; ".join(ptxas_entries(kbuild.build_log())))
 
 
 def ptxas_entries(log: str) -> list[str]:
@@ -232,25 +251,34 @@ def slice_run() -> int:
 
 
 def time_ms(fn, samples: int = 20, calls: int = 10) -> float:
-    """Median over ``samples`` of the device time of ``calls``
-    back-to-back calls between two CUDA events, per call (so the host's
-    launch overhead hides behind the queue)."""
-    for _ in range(5):
-        fn()
+    """Median over ``samples`` of the device time of one replay of a
+    CUDA graph that holds ``calls`` back-to-back calls, per call: the
+    host's launch overhead stays out of the number, even for a kernel
+    shorter than its launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     times = []
     for _ in range(samples):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(calls):
-            fn()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
-def timing() -> dict:
+def timing(fleet) -> dict:
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(2)
     u = torch.randn(MAIN_K, MAIN_P, generator=g, device="cuda")
@@ -260,15 +288,303 @@ def timing() -> dict:
     mv_ms = time_ms(lambda: torch.mv(u.T, w))
     nbytes = 4 * (MAIN_K * MAIN_P + MAIN_K + MAIN_P + 2 * MAIN_K + 1)
     flops = 6 * MAIN_K * MAIN_P + 2 * MAIN_P
+    out = {"fedavg_agg_quality": {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "agg_only_mv_ms": mv_ms, **bound(nbytes, flops)}}
+    lines = [f"fedavg_agg_quality K={MAIN_K} P={MAIN_P} f32: kernel "
+             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mv(U.T, w) (agg "
+             f"only) {mv_ms:.4f} ms; bound {out['fedavg_agg_quality']['bound_ms']:.4f} ms "
+             f"({nbytes} B, {flops} flop)"]
+
+    # segmented_topk on the fleet's masked ratio (8 x 131,072, k = 4,096)
+    x, k = fleet["ratio"], FLEET_K
+    S, C = x.shape
+    ms = time_ms(lambda: ops.segmented_topk(x, k))
+    plain_ms = time_ms(lambda: ref.segmented_topk_ref(x, k))
+    lib_ms = time_ms(lambda: torch.topk(x, k, dim=1))
+    nbytes = S * C * 4 + S * k * 8
+    out["segmented_topk"] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, **bound(nbytes, S * C)}
+    lines.append(f"segmented_topk S={S} C={C} k={k}: kernel {ms:.4f} ms, "
+                 f"plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms; "
+                 f"bound {out['segmented_topk']['bound_ms']:.4f} ms "
+                 f"({nbytes} B)")
+
+    # mkp_utility on stage 2's first MKP over task 0's pool
+    v, wt, r, sel = fleet["mkp_args"]
+    n, m = wt.shape
+    ms = time_ms(lambda: ops.mkp_utility(v, wt, r, sel))
+    plain_ms = time_ms(lambda: ref.mkp_utility_ref(v, wt, r, sel))
+    s_ = 1.0 / r.clamp_min(1e-12)
+    mv_ms = time_ms(lambda: torch.mv(wt, s_))
+    nbytes = 4 * (n * (m + 2) + m) + n
+    out["mkp_utility"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "penalty_only_mv_ms": mv_ms,
+                          **bound(nbytes, 2 * n * m + m + n)}
+    lines.append(f"mkp_utility n={n} m={m}: kernel {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms, torch.mv(w, s) (penalty only) "
+                 f"{mv_ms:.4f} ms; bound {out['mkp_utility']['bound_ms']:.6f} ms "
+                 f"({nbytes} B)")
+    phase(6, "median of 20 replays of a graph of 10 calls; bounds at "
+             "3.35 TB/s and 67 TFLOP/s f32: "
+             + " | ".join(lines))
+    return out
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
-    phase(6, f"K={MAIN_K} P={MAIN_P} f32 median of 20 x 10 calls: kernel {ms:.4f} ms, "
-             f"plain {plain_ms:.4f} ms, torch.mv(U.T, w) (agg only) "
-             f"{mv_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
-             f"({nbytes} B at 3.35 TB/s; {flops} flop at 67 TFLOP/s)")
-    return {"ms": ms, "plain_ms": plain_ms, "agg_only_mv_ms": mv_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
+    return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def topk_case(S, C, kind, g):
+    if kind == "ties":            # few distinct values: ties at every boundary
+        return torch.randint(0, 5, (S, C), generator=g,
+                             device="cuda").float() / 4
+    x = torch.randn(S, C, generator=g, device="cuda")
+    if kind == "padded":          # -inf padding, fewer finite entries than k
+        x[:, C // 3:] = float("-inf")
+        x[-1] = float("-inf")
+        x[0, 1], x[0, 2] = -0.0, 0.0
+    return x
+
+
+def new_kernels_vs_plain() -> dict:
+    """Both selection-plane kernels against their plain versions: exact.
+    Returns max |err| at the fleet shapes (0.0 when exact)."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n_topk = 0
+    err = {}
+    for S, C, ks in ((8, SHARD_CAP, (1, 32, FLEET_K, SHARD_CAP)),
+                     (3, 1000, (7,))):
+        for kind in ("normal", "ties", "padded"):
+            x = topk_case(S, C, kind, g)
+            for k in ks:
+                got = ops.segmented_topk(x, k)
+                exp = ref.segmented_topk_ref(x, k)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(exp[0])
+                check(torch.equal(got[0], exp[0])
+                      and torch.equal(got[1][fin], exp[1][fin]),
+                      f"segmented_topk S={S} C={C} k={k} {kind}: values and "
+                      f"finite lanes equal the plain version")
+                if (S, C, k, kind) == (8, SHARD_CAP, FLEET_K, "normal"):
+                    err["segmented_topk"] = float(
+                        (got[0] - exp[0]).abs().max())
+                    again = ops.segmented_topk(x, k)
+                    check(torch.equal(got[0], again[0])
+                          and torch.equal(got[1], again[1]),
+                          "segmented_topk repeats bit for bit")
+                n_topk += 1
+    n_mkp = 0
+    for n in (1, 19, 3846, 100_003):
+        for m in (1, CLASSES, 64):
+            v = torch.rand(n, generator=g, device="cuda") * 9 + 1
+            w = torch.randint(0, 30, (n, m), generator=g, device="cuda").float()
+            r = 0.3 * w.sum(0) + torch.rand(m, generator=g, device="cuda")
+            r[0] = 0.0
+            sel = torch.rand(n, generator=g, device="cuda") < 0.7
+            got = ops.mkp_utility(v, w, r, sel)
+            exp = ref.mkp_utility_ref(v, w, r, sel)
+            torch.cuda.synchronize()
+            check(torch.equal(got, exp),
+                  f"mkp_utility n={n} m={m} bit-equal to the plain version")
+            if (n, m) == (3846, CLASSES):
+                fin = torch.isfinite(exp)
+                err["mkp_utility"] = float((got[fin] - exp[fin]).abs().max())
+            n_mkp += 1
+    phase(7, f"segmented_topk vs plain: {n_topk} cases (S x C in 8x131072 "
+             f"with k in 1,32,4096,131072 and 3x1000 with k=7; normal, "
+             f"heavy ties, -inf padded with fewer finite than k) equal in "
+             f"values and finite lanes, repeat bit-identical; mkp_utility "
+             f"vs plain: {n_mkp} cases (n in 1,19,3846,100003; m in "
+             f"1,10,64) bit-equal")
+    return err
+
+
+def fleet_pool():
+    """The 1M-client pool of phase 8, with the inputs phase 6 times the
+    new kernels on: its masked ratio over 8 shards, and the first MKP
+    of stage 2 over task 0's flat picks (values, weights, capacities)."""
+    from repro_torch.core import DevicePoolState, engine, scheduling
+    from repro_torch.core.pool import ClientPoolState
+    t0 = time.perf_counter()
+    pool = ClientPoolState.random(FLEET_N, CLASSES, np.random.default_rng(0))
+    build_s = time.perf_counter() - t0
+    m = DevicePoolState.from_host(pool, shard_cap=SHARD_CAP)
+    ratio = m.masked_ratio(m.valid_mask(FLEET_TH))
+    rows = np.sort(engine._flat_pool_greedy(pool, FLEET_BUDGETS[0],
+                                            FLEET_TH)[0])
+    H = pool.histograms[rows]
+    caps = scheduling.default_capacities_arrays(H, SUBSET_N)
+    mkp_args = (torch.tensor(H.sum(1), dtype=torch.float32, device="cuda"),
+                torch.tensor(H, dtype=torch.float32, device="cuda"),
+                torch.tensor(caps, dtype=torch.float32, device="cuda"),
+                torch.ones(rows.size, dtype=torch.bool, device="cuda"))
+    return {"pool": pool, "build_s": build_s, "ratio": ratio,
+            "mkp_args": mkp_args}
+
+
+def churn(pool, seed: int) -> None:
+    """CHURN_EVENTS dirty rows: half the clients leave (spread over the
+    pool), half as many new ones join, as the reference's fleet record."""
+    from repro_torch.core.criteria import NUM_CRITERIA, random_histograms
+    half = CHURN_EVENTS // 2
+    alive = pool.client_ids[pool.registered]
+    pool.deregister(alive[:: max(1, alive.size // half)][:half])
+    r = np.random.default_rng(seed)
+    base = int(pool.client_ids.max()) + 1
+    pool.register_arrays(np.arange(base, base + half),
+                         r.random((half, NUM_CRITERIA)),
+                         random_histograms(half, CLASSES, r),
+                         r.uniform(1.0, 5.0, half))
+
+
+def fleet_intake(fleet) -> tuple[int, tuple]:
+    from repro_torch.core import FLServiceProvider, TaskRequest, engine
+    from repro_torch.kernels import ops
+    pool = fleet["pool"]
+    sp = FLServiceProvider(pool)
+    tasks = [TaskRequest(budget=b, n_star=SUBSET_N, thresholds=FLEET_TH,
+                         subset_size=SUBSET_N, subset_delta=SUBSET_DELTA,
+                         seed=i) for i, b in enumerate(FLEET_BUDGETS)]
+    t0 = time.perf_counter()
+    mirror = pool.device_mirror(shard_cap=SHARD_CAP)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    check(mirror.num_shards == 8 and mirror.device.type == "cuda",
+          "mirror: 8 shards on the card")
+    runs, hier = [], engine.hierarchical_greedy_knapsack
+    parts = {"mask": 0.0, "frontier": 0.0}
+
+    def timed(name, fn):
+        """Time a mirror query; each ends in a copy to the host, so it
+        also waits for the device work queued before it."""
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            parts[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    def spy(*args, **kwargs):
+        """Each task's stage 1: route, frontier, time, raw result."""
+        st = {}
+        t = time.perf_counter()
+        out = hier(*args, stats=st, **kwargs)
+        runs.append((time.perf_counter() - t, st, out))
+        return out
+
+    def sweep(label):
+        runs.clear()
+        parts.update(mask=0.0, frontier=0.0)
+        res = sp.select_pools_batch(tasks)
+        total = sum(dt for dt, _, _ in runs)
+        split[label] = (f"{total * 1e3:.1f} ms = mask and shard counts "
+                        f"{parts['mask'] * 1e3:.1f} + ratio, segmented_topk "
+                        f"and frontier copy {parts['frontier'] * 1e3:.1f} + "
+                        f"host merge {(total - sum(parts.values())) * 1e3:.1f}")
+        check(len(runs) == len(tasks), f"{label}: one frontier greedy a task")
+        for task, r, (_, st, (rows, ts, tc, nv)) in zip(tasks, res, runs):
+            frows, fts, ftc, fnv = engine._flat_pool_greedy(
+                pool, task.budget, FLEET_TH)
+            check(st["path"] == "frontier", f"{label}: routed through the "
+                  f"frontier (path {st['path']})")
+            check(np.array_equal(rows, frows) and (ts, tc, nv)
+                  == (fts, ftc, fnv), f"{label}: budget {task.budget}: "
+                  "rows and totals equal the flat host greedy")
+            check(r.feasible and r.selected
+                  == pool.client_ids[np.sort(frows)].tolist(),
+                  f"{label}: select_pools_batch ids equal the flat picks")
+        return res, [(dt, dict(st), out[0].size) for dt, st, out in runs]
+
+    split = {}
+    engine.hierarchical_greedy_knapsack = spy
+    mirror.shard_stats = timed("mask", mirror.shard_stats)
+    mirror.frontier = timed("frontier", mirror.frontier)
+    ops.LAUNCHES["segmented_topk"] = 0
+    torch.cuda.synchronize()
+    try:
+        res, before = sweep("before churn")
+        ids0 = np.asarray(res[0].selected)          # task 0's pool, stage 2
+        task0 = (ids0, pool.histograms[pool.positions(ids0)])
+        churn(pool, seed=1)
+        t0 = time.perf_counter()
+        pool.device_mirror()
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        check(mirror.syncs == 1 and mirror.restages == 1,
+              "churn absorbed by one incremental sync")
+        _, after = sweep("after churn")
+        torch.cuda.synchronize()
+    finally:
+        engine.hierarchical_greedy_knapsack = hier
+        del mirror.shard_stats, mirror.frontier
+    launches = ops.LAUNCHES["segmented_topk"]
+    frontiers = sum(st["escalations"] + 1 for _, st, _ in before + after)
+    check(launches == frontiers > 0,
+          f"segmented_topk launches {launches} == frontiers {frontiers}")
+    per_task = "; ".join(
+        f"B={t.budget:.1f}: {b[2]} picks, {b[0] * 1e3:.1f} ms, F={b[1]['frontier']}"
+        f", esc {b[1]['escalations']} / after churn {a[0] * 1e3:.1f} ms, "
+        f"F={a[1]['frontier']}, esc {a[1]['escalations']}"
+        for t, b, a in zip(tasks, before, after))
+    phase(8, f"fleet intake: {FLEET_N} clients (pool built on the host in "
+             f"{fleet['build_s']:.2f} s), {mirror.num_shards} shards of "
+             f"{SHARD_CAP}; mirror staged in {stage_s * 1e3:.1f} ms; 4 tasks "
+             f"through select_pools_batch, path frontier, picks equal the "
+             f"flat greedy before and after {CHURN_EVENTS} churn events "
+             f"(sync {sync_s * 1e3:.1f} ms); stage 1 per task: {per_task}; "
+             f"4 tasks before churn {split['before churn']}, after churn "
+             f"{split['after churn']}; segmented_topk launches {launches}")
+    return launches, task0
+
+
+def stage2_on_card(arrays) -> int:
+    """``arrays``: task 0's pool as (ids, histograms)."""
+    from repro_torch.core import fairness, scheduling
+    from repro_torch.kernels import ops
+    ops.LAUNCHES["mkp_utility"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA,
+                                      backend="device")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES["mkp_utility"]
+    t0 = time.perf_counter()
+    cpu = scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA,
+                                      backend="device", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA)
+    numpy_s = time.perf_counter() - t0
+    check(dev.subsets == cpu.subsets and dev.counts == cpu.counts
+          and np.array_equal(dev.nids, cpu.nids),
+          "device schedule equals the CPU plain schedule")
+    check(launches > 0, "stage 2 launched mkp_utility")
+    rep = fairness.fairness_report(dev, sorted(arrays[0].tolist()), x_star=3)
+    check(rep["coverage"] and rep["bounded"],
+          "the schedule covers the pool within x*")
+    phase(9, f"stage 2 on the card: generate_subsets(n={SUBSET_N}, "
+             f"delta={SUBSET_DELTA}, backend='device') over task 0's "
+             f"{arrays[0].size} clients: {len(dev.subsets)} subsets in "
+             f"{dev_s:.2f} s wall (CPU plain version {cpu_s:.2f} s; the "
+             f"default numpy greedy + local search {numpy_s:.2f} s), equal "
+             f"to the CPU schedule, coverage and x* bound hold; mkp_utility "
+             f"launches {launches} ({dev_s / launches * 1e6:.0f} us of wall "
+             f"a launch)")
+    return launches
+
+
+def record(name, source, replaces, launches, err, t) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            **t}
 
 
 def main() -> int:
@@ -279,15 +595,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     chunk_kernel_vs_plain()
     launches = slice_run()
-    t = timing()
-    record = {"name": "fedavg_agg_quality", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/fedavg_agg_quality.cu",
-              "replaces": "src/repro/kernels/fedavg_agg.py:91",
-              "launches": launches, "max_abs_err": err, "ms": t["ms"],
-              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-              "bound_by": t["bound_by"], "library_ms": None,
-              "agg_only_mv_ms": t["agg_only_mv_ms"]}
-    print(json.dumps({"kernels": [record]}))
+    fleet = fleet_pool()
+    t = timing(fleet)
+    errs = new_kernels_vs_plain()
+    topk_launches, task0 = fleet_intake(fleet)
+    mkp_launches = stage2_on_card(task0)
+    csrc = "src/repro_torch/kernels/csrc/"
+    records = [
+        record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",
+               "src/repro/kernels/fedavg_agg.py:91", launches, err,
+               t["fedavg_agg_quality"]),
+        record("segmented_topk", csrc + "segmented_topk.cu",
+               "src/repro/kernels/segmented_topk.py:62", topk_launches,
+               errs["segmented_topk"], t["segmented_topk"]),
+        record("mkp_utility", csrc + "mkp_utility.cu",
+               "src/repro/kernels/mkp_utility.py:42", mkp_launches,
+               errs["mkp_utility"], t["mkp_utility"])]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

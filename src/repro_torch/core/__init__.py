@@ -1,28 +1,32 @@
 """Control plane of the port: the paper's client selection (stage 1)
 and scheduling (stage 2), the task lifecycle and the service facade.
 
-Host-side numpy, kept bit-identical to the JAX package's ``core``:
+Host-side numpy, kept bit-identical to the JAX package's ``core``,
+plus the device selection plane in torch:
 
 - ``ClientPoolState`` (pool.py) is the struct-of-arrays client pool
   (scores ``(n, 11)``, histograms ``(n, c)``, costs, active mask,
   participation counts) shared by every stage.
-- ``engine`` holds the vectorized stage-1 greedy knapsack and the
-  Toyoda MKP scoring; ``selection`` / ``scheduling`` / ``mkp`` build the
-  two stages on it, and ``policy`` is the by-name strategy registry
-  (``paper_greedy`` + ``iid_subsets`` reproduce the paper).
+- ``engine`` holds the vectorized stage-1 greedy knapsack (single,
+  batched over tasks, and hierarchical over the sharded device mirror
+  ``DevicePoolState`` of device_pool.py at fleet scale) and the Toyoda
+  MKP scoring and its device greedy; ``selection`` / ``scheduling`` /
+  ``mkp`` build the two stages on it, and ``policy`` is the by-name
+  strategy registry (``paper_greedy`` + ``iid_subsets`` reproduce the
+  paper).
 - ``lifecycle`` is the explicit ``TaskState`` machine (``submit`` /
   ``dispatch`` / ``collect`` / ``drain``) with reputation updates from
   the quality cosines (``reputation``); ``service`` is the provider
   facade; ``placement`` maps tenants onto device indices.
 
-Not ported yet (ROADMAP.md Queue 1): the device pool mirror and the
-hierarchical and batched greedies, checkpoint files, fault injection
+Not ported yet (ROADMAP.md Queue 1): checkpoint files, fault injection
 and the online workload harness.
 """
 from .criteria import (CRITERIA, NUM_CRITERIA, ClientProfile, build_profiles,
                        cosine_similarity, data_dist_score, linear_cost, nid,
                        nid_hellinger, nid_kl, nid_l2, overall_score,
                        random_histograms, random_profiles, resource_scores)
+from .device_pool import DevicePoolState
 from .fairness import (bounded_participation, coverage, fairness_report,
                        jain_index, over_selection_fraction)
 from .lifecycle import (AsyncTrainer, InFlightError, PendingChunk,
@@ -55,7 +59,7 @@ __all__ = [
     "build_profiles", "cosine_similarity", "data_dist_score", "linear_cost",
     "nid", "nid_hellinger", "nid_kl", "nid_l2", "overall_score",
     "random_histograms", "random_profiles", "resource_scores",
-    "bounded_participation", "coverage", "fairness_report", "jain_index",
+    "DevicePoolState", "bounded_participation", "coverage", "fairness_report", "jain_index",
     "over_selection_fraction", "MKPResult", "solve_mkp", "solve_mkp_bnb",
     "solve_mkp_greedy", "ReputationRecord", "ReputationTracker",
     "model_quality_batch", "ScheduleResult", "default_capacities",

@@ -7,7 +7,8 @@ available offline, so we implement the solver ourselves:
   added in decreasing value per unit of *scarcity-weighted* capacity
   consumption, recomputed as knapsacks fill up; followed by a repair-free
   add pass and a 1-swap local search. This is the production path. The
-  per-pick rescoring of all candidates is ``engine.mkp_pseudo_utility``.
+  per-pick rescoring of all candidates is ``engine.mkp_pseudo_utility``
+  (shared with the device path, see core/engine.py).
 - ``solve_mkp_bnb`` — exact depth-first branch-and-bound with an
   LP-style fractional bound, for small instances; used by tests to bound
   the greedy's optimality gap and by the scheduler for tiny tail pools.
@@ -71,7 +72,8 @@ def solve_mkp_greedy(values, weights, capacities, max_size: int | None = None,
 
     # -- pseudo-utility greedy (recompute scarcity each pick) --
     # The whole candidate set is rescored at once per pick; the scoring
-    # formula lives in engine.mkp_pseudo_utility.
+    # formula lives in engine.mkp_pseudo_utility (one source of truth for
+    # the numpy path; the device path's kernel computes the same formula).
     from .engine import mkp_pseudo_utility
     while len(selected) < max_size:
         residual = capacities - used
@@ -204,17 +206,28 @@ def solve_mkp_bnb(values, weights, capacities, max_size: int | None = None,
 
 
 def solve_mkp(values, weights, capacities, max_size: int | None = None,
-              exact_threshold: int = 18, backend: str = "numpy") -> MKPResult:
+              exact_threshold: int = 18, backend: str = "numpy",
+              device=None) -> MKPResult:
     """Dispatch: exact B&B for tiny instances, greedy+LS otherwise.
 
-    ``backend="jax"`` (the reference's device greedy over the
-    ``mkp_utility`` kernel) is not ported yet and raises.
+    ``backend="device"`` (the reference's ``"jax"``) routes large
+    instances through ``engine.solve_mkp_greedy_device`` on ``device``
+    (None -> ``cuda``): the greedy loop over the ``mkp_utility`` kernel,
+    greedy phase only, no local search.
     """
+    if backend not in ("numpy", "device"):
+        raise ValueError(f"unknown MKP backend {backend!r}: the port's "
+                         "backends are 'numpy' and 'device' (the "
+                         "reference's 'jax')")
     values = np.asarray(values, dtype=np.float64)
     if values.shape[0] <= exact_threshold:
         return solve_mkp_bnb(values, weights, capacities, max_size)
-    if backend == "jax":
-        raise NotImplementedError(
-            "MKP backend='jax' (device greedy over the mkp_utility kernel) "
-            "is not ported yet: ROADMAP.md Queue 1 item 2")
+    if backend == "device":
+        from .engine import solve_mkp_greedy_device
+        mask, used = solve_mkp_greedy_device(values, weights, capacities,
+                                             max_size, device=device)
+        sel = np.flatnonzero(mask)
+        val = float(values[sel].sum()) if sel.size else 0.0
+        return MKPResult([int(j) for j in sel], val,
+                         np.asarray(used, dtype=np.float64), optimal=False)
     return solve_mkp_greedy(values, weights, capacities, max_size)

@@ -21,7 +21,7 @@ Protocols
   ``n_star`` / thresholds). ``select_batch`` serves many concurrent
   tasks in one call — the multi-tenant intake path; the default simply
   loops, the paper policy overrides it with the batched knapsack
-  sweep (``engine.greedy_knapsack_batch``, not ported yet: it raises).
+  sweep (``engine.greedy_knapsack_batch``).
 - :class:`SchedulingPolicy` — stage 2: ``schedule(ids, histograms,
   task, rng, policy_state)`` maps the task's current pool (ascending-id
   ``(P,)`` ids + ``(P, c)`` label histograms) to a ``ScheduleResult``
@@ -295,13 +295,16 @@ class PaperGreedySelection(_BudgetedSelection):
     pre-registry ``select_pools_batch`` — one vectorized threshold
     sweep + one batched greedy knapsack for every task at once
     (selected ids come back in pool order; same set/totals/feasibility
-    as ``select``, which returns greedy pick order). The batched greedy
-    is not ported yet: ``engine.greedy_knapsack_batch`` raises."""
+    as ``select``, which returns greedy pick order)."""
 
     name = "paper_greedy"
     method = "greedy"
 
     def select_batch(self, pool, tasks, rngs):
+        if isinstance(pool, ClientPoolState):
+            from . import device_pool
+            if pool.n >= device_pool.HIERARCHICAL_MIN_N:
+                return self._select_batch_hierarchical(pool, tasks)
         budgets = np.array([t.budget for t in tasks], dtype=np.float64)
         valid = np.stack([pool.threshold_mask(t.thresholds) for t in tasks])
         masks, _, _ = engine.greedy_knapsack_batch(
@@ -323,6 +326,40 @@ class PaperGreedySelection(_BudgetedSelection):
             if len(res.selected) < task.n_star:
                 res.feasible = False
                 floor = pool.budget_floor(task.n_star, valid[t])
+                res.note = (f"budget {task.budget} selects only "
+                            f"{len(res.selected)} < n*={task.n_star} "
+                            f"clients; Eq.(11) floor is {floor:.1f}")
+            results.append(res)
+        return results
+
+    def _select_batch_hierarchical(self, pool, tasks):
+        """Fleet-scale batch path: one device-mirror sync serves every
+        task, each task runs the two-level frontier greedy
+        (``engine.hierarchical_greedy_knapsack_batch``) instead of a
+        host argsort over the full pool. Same ids (pool order), totals
+        and feasibility notes as the flat batch path — asserted in
+        tests/test_scale_plane.py."""
+        from .criteria import overall_score
+        outs = engine.hierarchical_greedy_knapsack_batch(
+            pool, np.array([t.budget for t in tasks], dtype=np.float64),
+            [t.thresholds for t in tasks])
+        results: list[SelectionResult] = []
+        for task, (rows, _, _, n_kept) in zip(tasks, outs):
+            if n_kept < task.n_star:
+                results.append(SelectionResult(
+                    [], 0.0, 0.0, feasible=False,
+                    note=f"only {n_kept} clients pass thresholds, "
+                         f"need {task.n_star}"))
+                continue
+            rows = np.sort(rows)              # batch contract: pool order
+            res = SelectionResult(
+                pool.client_ids[rows].tolist(),
+                float(overall_score(pool.scores[rows]).sum()),
+                float(pool.costs[rows].sum()))
+            if len(res.selected) < task.n_star:
+                res.feasible = False
+                floor = pool.budget_floor(
+                    task.n_star, pool.threshold_mask(task.thresholds))
                 res.note = (f"budget {task.budget} selects only "
                             f"{len(res.selected)} < n*={task.n_star} "
                             f"clients; Eq.(11) floor is {floor:.1f}")

@@ -254,12 +254,30 @@ class ClientPoolState:
         return np.unique(np.concatenate(rows))
 
     def device_mirror(self, shard_cap: int | None = None,
-                      include_histograms: bool = False):
-        """The pool's sharded device mirror (fleet selection plane).
-        Not ported yet; the flat host path serves every pool size."""
-        raise NotImplementedError(
-            "the device pool mirror is not ported yet: ROADMAP.md Queue 1 "
-            "item 6")
+                      include_histograms: bool = False, device=None):
+        """The pool's cached :class:`~repro_torch.core.device_pool.
+        DevicePoolState` (sharded tensors), synced to the current
+        version via the dirty-region log — thousands of churn events
+        per sweep update row slices in place instead of re-staging the
+        buffers. Rebuilt only when the requested geometry or device
+        changes. ``device=None`` means the cached mirror's device, else
+        ``cuda`` (raising without CUDA)."""
+        from .device_pool import DevicePoolState, same_device
+        m = self._mirror
+        if (m is None
+                or (shard_cap is not None and m.shard_cap != shard_cap)
+                or (include_histograms and m.histograms is None)
+                or (device is not None
+                    and not same_device(m.device, device))):
+            if device is None and m is not None:
+                device = m.device
+            m = DevicePoolState.from_host(
+                self, shard_cap=shard_cap,
+                include_histograms=include_histograms, device=device)
+            self._mirror = m
+        else:
+            m.sync(self)
+        return m
 
     def _ensure_capacity(self, extra: int) -> None:
         """Grow the backing buffers (doubling) so ``extra`` more rows fit;

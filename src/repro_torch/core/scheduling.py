@@ -106,7 +106,7 @@ def _as_pool_arrays(histograms) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _solve_rows(rows: np.ndarray, H: np.ndarray, capacities: np.ndarray,
-                max_size: int, backend: str) -> np.ndarray:
+                max_size: int, backend: str, device=None) -> np.ndarray:
     """One MKP (Eq. 13) over the candidate ``rows``: value = |h|_1,
     weights = h. Returns the chosen rows (subset of ``rows``)."""
     if rows.size == 0:
@@ -114,20 +114,21 @@ def _solve_rows(rows: np.ndarray, H: np.ndarray, capacities: np.ndarray,
     W = H[rows]
     v = W.sum(axis=1)
     res: MKPResult = solve_mkp(v, W, capacities, max_size=max_size,
-                               backend=backend)
+                               backend=backend, device=device)
     return rows[np.asarray(res.selected, dtype=np.int64)] if res.selected \
         else rows[:0]
 
 
 def _complementary_rows(mandatory: np.ndarray, candidates: np.ndarray,
                         H: np.ndarray, capacities: np.ndarray,
-                        max_extra: int, backend: str) -> np.ndarray:
+                        max_extra: int, backend: str,
+                        device=None) -> np.ndarray:
     """Complementary-knapsacks trick (Fig. 2): capacities minus the
     mandatory fill become the new capacities; fill from ``candidates``."""
     fill = H[mandatory].sum(axis=0) if mandatory.size else \
         np.zeros_like(capacities)
     residual = np.maximum(capacities - fill, 0.0)
-    extra = _solve_rows(candidates, H, residual, max_extra, backend)
+    extra = _solve_rows(candidates, H, residual, max_extra, backend, device)
     return np.concatenate([mandatory, extra])
 
 
@@ -141,6 +142,7 @@ def generate_subsets(
     fill_frac: float = 0.6,
     capacities: np.ndarray | None = None,
     backend: str = "numpy",
+    device=None,
 ) -> ScheduleResult:
     """Algorithm 1 *Generate Subsets*, array-native.
 
@@ -153,7 +155,9 @@ def generate_subsets(
       nid_threshold: trigger for the Nid-improvement pass.
       fill_frac: a knapsack is 'under-filled' when below this fraction.
       capacities: optional explicit knapsack capacities (else §VIII-C rule).
-      backend: MKP backend ("numpy" greedy+LS; "jax" is not ported yet).
+      backend: MKP backend ("numpy" greedy+LS, "device" greedy over the
+        ``mkp_utility`` kernel).
+      device: where the "device" backend runs (None -> ``cuda``).
 
     Produces schedules identical to :func:`generate_subsets_legacy`
     (with the default backend); only the per-iteration bookkeeping is
@@ -179,7 +183,7 @@ def generate_subsets(
     while remaining.any():
         rem_rows = np.flatnonzero(remaining)        # ascending id order
         if rem_rows.size >= min_size:
-            sel = _solve_rows(rem_rows, H, caps, max_size, backend)
+            sel = _solve_rows(rem_rows, H, caps, max_size, backend, device)
             if sel.size == 0:
                 # no single client fits the capacities: force the smallest
                 # remaining client so the algorithm always progresses.
@@ -196,7 +200,8 @@ def generate_subsets(
                         (H[:, under].sum(axis=1) > 0)
                     if comp.any():
                         cand = np.flatnonzero(remaining | comp)
-                        resel = _solve_rows(cand, H, caps, max_size, backend)
+                        resel = _solve_rows(cand, H, caps, max_size, backend,
+                                           device)
                         # keep the re-selection only if it covers >=1
                         # remaining client (progress) and improves Nid
                         if (remaining[resel].any()
@@ -210,7 +215,8 @@ def generate_subsets(
                 comp = np.flatnonzero(eligible_compensation(in_sel))
                 candidates = np.concatenate([pool2, comp])
                 sel = _complementary_rows(sel, candidates, H, caps,
-                                          max_size - sel.size, backend)
+                                          max_size - sel.size, backend,
+                                          device)
                 # if still short, pad greedily with smallest remaining
                 # clients (size constraint beats Nid, per the paper)
                 if sel.size < min_size:
@@ -228,7 +234,8 @@ def generate_subsets(
             comp = np.flatnonzero(eligible_compensation(in_sel))
             if sel.size < max_size and comp.size:
                 sel = _complementary_rows(sel, comp, H, caps,
-                                          max_size - sel.size, backend)
+                                          max_size - sel.size, backend,
+                                          device)
 
         subsets_rows.append(np.sort(sel))
         counts[sel] += 1

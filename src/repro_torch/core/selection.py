@@ -299,6 +299,11 @@ def select_initial_pool(
     """
     pool = (profiles if isinstance(profiles, ClientPoolState)
             else ClientPoolState.from_profiles(profiles))
+    if method == "greedy" and isinstance(profiles, ClientPoolState):
+        from . import device_pool
+        if pool.n >= device_pool.HIERARCHICAL_MIN_N:
+            return _select_initial_pool_hierarchical(
+                pool, budget, n_star, thresholds)
     mask = pool.threshold_mask(thresholds)
     n_kept = int(mask.sum())
     if n_kept < n_star:
@@ -326,3 +331,28 @@ def select_initial_pool(
                     f"clients; Eq.(11) floor is {floor:.1f}")
     return res
 
+
+def _select_initial_pool_hierarchical(
+        pool: ClientPoolState, budget: float, n_star: int,
+        thresholds: np.ndarray | None) -> SelectionResult:
+    """Fleet-scale Stage 1: the two-level device-mirror greedy
+    (``engine.hierarchical_greedy_knapsack``) behind the same contract
+    as the flat path — identical ids in pick order, totals, and
+    feasibility notes (asserted in tests/test_scale_plane.py). Entered
+    from :func:`select_initial_pool` for ``method="greedy"`` pools at
+    or above ``device_pool.HIERARCHICAL_MIN_N``; eligibility counting
+    runs on the device mask, the Eq. (11) floor (infeasible path only)
+    on the host mask."""
+    rows, ts, tc, n_kept = engine.hierarchical_greedy_knapsack(
+        pool, budget, thresholds)
+    if n_kept < n_star:
+        return SelectionResult(
+            [], 0.0, 0.0, feasible=False,
+            note=f"only {n_kept} clients pass thresholds, need {n_star}")
+    res = SelectionResult(pool.client_ids[rows].tolist(), ts, tc)
+    if len(res.selected) < n_star:
+        res.feasible = False
+        floor = pool.budget_floor(n_star, pool.threshold_mask(thresholds))
+        res.note = (f"budget {budget} selects only {len(res.selected)} "
+                    f"< n*={n_star} clients; Eq.(11) floor is {floor:.1f}")
+    return res

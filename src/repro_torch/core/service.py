@@ -111,8 +111,8 @@ class FLServiceProvider:
         Tasks are grouped by their resolved selection policy and each
         group is served by the policy's ``select_batch`` — for the
         default ``paper_greedy`` that is one vectorized threshold sweep
-        plus a single batched greedy (engine.greedy_knapsack_batch, not
-        ported yet: it raises) solving every task's knapsack at once — the multi-tenant
+        plus a single batched greedy (engine.greedy_knapsack_batch)
+        solving every task's knapsack at once — the multi-tenant
         serving path (``ServiceScheduler`` intake). Per-task
         feasibility (n*, Eq. 11) is applied by the policies. For
         ``paper_greedy``, selected ids come back in pool order (same

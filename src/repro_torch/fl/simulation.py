@@ -38,6 +38,7 @@ from repro_torch.core import (ClientPoolState, FLServiceProvider, TaskRequest,
 from repro_torch.core.criteria import (NUM_CRITERIA, data_dist_score,
                                        linear_cost, overall_score)
 from repro_torch.data.synthetic import ClassificationData
+from repro_torch.device import resolve_device
 from repro_torch.fl import device_data
 from repro_torch.fl.partition import client_histograms
 from repro_torch.fl.round import make_fl_rounds_scan
@@ -53,16 +54,6 @@ class SimConfig:
     dropout_rate: float = 0.05        # paper: 5% of clients drop per period
     eval_every: int = 5
     seed: int = 0
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``. Raises when CUDA is asked for but absent:
-    the port never drifts onto the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the port on the CPU")
-    return dev
 
 
 def pool_from_partition(labels, parts, num_classes,

@@ -6,21 +6,29 @@ PyTorch version in :mod:`repro_torch.kernels.ref`. ``LAUNCHES`` counts
 each op's kernel launches, so a run can show that its main path went
 through the kernel; set an entry to 0 to start a count.
 
-``fedavg_agg_quality`` replaces the JAX package's Pallas kernel
-``src/repro/kernels/fedavg_agg.py::fedavg_agg_quality`` (line 91). It
-is bandwidth-bound: it must read U (K, P) once and write agg (P,), so
-its bound is (K + 1)·P·itemsize bytes over the card's memory rate —
-about 18 µs at the main path's K = 13, P = 1,070,794 (f32) on an H100
-SXM's 3.35 TB/s. The main path launches it once per round.
+- ``fedavg_agg_quality`` replaces the JAX package's Pallas kernel
+  ``src/repro/kernels/fedavg_agg.py::fedavg_agg_quality`` (line 91). It
+  is bandwidth-bound: it must read U (K, P) once and write agg (P,), so
+  its bound is (K + 1)·P·itemsize bytes over the card's memory rate —
+  about 18 µs at the main path's K = 13, P = 1,070,794 (f32) on an H100
+  SXM's 3.35 TB/s. The service loop launches it once per round.
+- ``segmented_topk`` replaces ``src/repro/kernels/segmented_topk.py``
+  (line 62): the per-shard frontier of the fleet-scale stage 1, launched
+  once per frontier (per task, and again per escalation).
+- ``mkp_utility`` replaces ``src/repro/kernels/mkp_utility.py`` (line
+  42): the Toyoda update of stage 2's device MKP greedy, launched once
+  per greedy iteration.
 """
 from __future__ import annotations
 
 import torch
 
 from . import fedavg_agg as _fedavg_agg
+from . import mkp_utility as _mkp_utility
 from . import ref
+from . import segmented_topk as _segmented_topk
 
-LAUNCHES = {"fedavg_agg_quality": 0}
+LAUNCHES = {"fedavg_agg_quality": 0, "segmented_topk": 0, "mkp_utility": 0}
 
 
 def fedavg_agg_quality(updates: torch.Tensor, weights: torch.Tensor):
@@ -34,4 +42,27 @@ def fedavg_agg_quality(updates: torch.Tensor, weights: torch.Tensor):
     return out
 
 
-__all__ = ["LAUNCHES", "fedavg_agg_quality"]
+def segmented_topk(x: torch.Tensor, k: int):
+    """Per-row top-k of x (S, C) (``-inf``-padded shards). Returns
+    ``(values (S, k) f32, lanes (S, k) int32)``, descending per row, ties
+    to the lowest lane; see :func:`repro_torch.kernels.ref.segmented_topk_ref`."""
+    if x.device.type == "cpu":
+        return ref.segmented_topk_ref(x, k)
+    out = _segmented_topk.segmented_topk(x, k)
+    LAUNCHES["segmented_topk"] += 1
+    return out
+
+
+def mkp_utility(values: torch.Tensor, weights: torch.Tensor,
+                residual: torch.Tensor, selectable: torch.Tensor):
+    """Toyoda pseudo-utility of every MKP item at once. Returns (n,) f32,
+    ``-inf`` where an item cannot be picked; see
+    :func:`repro_torch.kernels.ref.mkp_utility_ref`."""
+    if values.device.type == "cpu":
+        return ref.mkp_utility_ref(values, weights, residual, selectable)
+    out = _mkp_utility.mkp_utility(values, weights, residual, selectable)
+    LAUNCHES["mkp_utility"] += 1
+    return out
+
+
+__all__ = ["LAUNCHES", "fedavg_agg_quality", "mkp_utility", "segmented_topk"]

@@ -26,3 +26,38 @@ def fedavg_agg_quality_ref(updates: torch.Tensor, weights: torch.Tensor):
     sq = (u * u).sum(dim=1)
     asq = torch.dot(agg, agg)
     return agg.to(updates.dtype), dots, sq, asq
+
+
+def segmented_topk_ref(x: torch.Tensor, k: int):
+    """Segmented top-k: x (S, C) -> ``(values (S, k) f32, lanes (S, k)
+    int32)``, descending per row, ties to the lowest lane (``k`` is
+    clipped to C). ``torch.topk`` does not promise that tie rule; a
+    stable descending sort does. ``-inf`` values mark rows that ran out
+    of finite entries."""
+    k = int(min(k, x.shape[-1]))
+    xf = x.to(torch.float32)
+    # + 0.0 turns -0.0 into +0.0, so the two tie on every sort backend
+    lanes = torch.sort(xf + 0.0, dim=-1, descending=True,
+                       stable=True).indices[..., :k]
+    return torch.gather(xf, -1, lanes), lanes.to(torch.int32)
+
+
+def mkp_utility_ref(values: torch.Tensor, weights: torch.Tensor,
+                    residual: torch.Tensor, selectable: torch.Tensor,
+                    eps: float = 1e-12):
+    """Toyoda pseudo-utility: values (n,), weights (n, m), residual (m,),
+    selectable (n,) -> (n,) f32, ``v / max(Σ_k w_k / max(r_k, eps), eps)``
+    or ``-inf`` where the item is not selectable or does not fit
+    (``w > r + eps`` in some column). All in f32; the penalty is summed
+    column by column, left to right (not ``w @ s``), so the CUDA kernel,
+    which sums in the same order, matches it bit for bit."""
+    v = values.to(torch.float32)
+    w = weights.to(torch.float32)
+    r = residual.to(torch.float32)
+    scarcity = torch.ones_like(r) / r.clamp_min(eps)
+    penalty = torch.zeros_like(v)
+    for k in range(w.shape[1]):
+        penalty = penalty + w[:, k] * scarcity[k]
+    fits = (w <= r + eps).all(dim=1) & (selectable.to(torch.float32) > 0)
+    util = v / penalty.clamp_min(eps)
+    return torch.where(fits, util, torch.full_like(util, float("-inf")))

@@ -7,12 +7,19 @@ Tolerances: the kernel sums in f32 in another order than the plain
 version (per-thread, then per-block partials), so f32 outputs agree to
 rtol 1e-5 with an absolute floor scaled by the sum's size; bf16 agg
 may differ by one bf16 ulp where the f32 sums straddle a rounding
-boundary.
+boundary. ``segmented_topk`` and ``mkp_utility`` are held to their
+plain versions exactly: the top-k is a selection (values and lanes of
+every finite entry equal), and the utility kernel rounds every product,
+sum and division as the plain version does.
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fedavg_agg, ops, ref
+from repro_torch.core import engine
+from repro_torch.core.pool import ClientPoolState
+from repro_torch.kernels import fedavg_agg, mkp_utility, ops, ref
+from repro_torch.kernels import segmented_topk
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +65,131 @@ def test_kernel_refuses_k_above_max(cuda):
     with pytest.raises(ValueError, match="K <="):
         ops.fedavg_agg_quality(u, torch.ones(fedavg_agg.MAX_K + 1,
                                              device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# segmented_topk
+# ---------------------------------------------------------------------------
+
+def assert_topk_equal(got, exp):
+    assert torch.equal(got[0], exp[0])
+    fin = torch.isfinite(exp[0])
+    assert torch.equal(got[1][fin], exp[1][fin])
+
+
+def topk_input(S, C, kind, cuda):
+    g = torch.Generator(device=cuda).manual_seed(S * 31 + C)
+    if kind == "normal":
+        return torch.randn(S, C, generator=g, device=cuda)
+    if kind == "ties":          # few distinct values: ties at every boundary
+        return torch.randint(0, 5, (S, C), generator=g,
+                             device=cuda).float() / 4
+    x = torch.randn(S, C, generator=g, device=cuda)  # -inf padded rows
+    x[:, C // 3:] = float("-inf")
+    x[-1] = float("-inf")
+    if C > 2:
+        x[0, 1], x[0, 2] = -0.0, 0.0
+    return x
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "padded"])
+@pytest.mark.parametrize("S,C,k", [(3, 1000, 7), (8, 131072, 1),
+                                   (8, 131072, 32), (8, 131072, 4096),
+                                   (2, 131072, 131072), (5, 9000, 4097),
+                                   (1, 1, 1), (4, 77, 100)])
+def test_segmented_topk_matches_plain(cuda, S, C, k, kind):
+    x = topk_input(S, C, kind, cuda)
+    before = ops.LAUNCHES["segmented_topk"]
+    got = ops.segmented_topk(x, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segmented_topk"] == before + 1
+    assert got[0].shape == (S, min(k, C)) and got[1].dtype == torch.int32
+    assert_topk_equal(got, ref.segmented_topk_ref(x, k))
+
+
+def test_segmented_topk_is_deterministic(cuda):
+    x = topk_input(8, 131072, "ties", cuda)
+    a, b = ops.segmented_topk(x, 4096), ops.segmented_topk(x, 4096)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_segmented_topk_refuses_bad_inputs(cuda):
+    with pytest.raises(ValueError, match="float32"):
+        ops.segmented_topk(torch.zeros(2, 8, dtype=torch.float64,
+                                       device=cuda), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.segmented_topk(torch.zeros(8, 2, device=cuda).T, 3)
+    with pytest.raises(ValueError, match="k >= 1"):
+        segmented_topk.segmented_topk(torch.zeros(2, 8, device=cuda), 0)
+
+
+# ---------------------------------------------------------------------------
+# mkp_utility
+# ---------------------------------------------------------------------------
+
+def mkp_input(n, m, cuda):
+    g = torch.Generator(device=cuda).manual_seed(n * 131 + m)
+    v = torch.rand(n, generator=g, device=cuda) * 9 + 1
+    w = torch.randint(0, 30, (n, m), generator=g, device=cuda).float()
+    r = 0.3 * w.sum(0) + torch.rand(m, generator=g, device=cuda)
+    r[0] = 0.0                                     # an exhausted knapsack
+    sel = torch.rand(n, generator=g, device=cuda) < 0.7
+    return v, w, r, sel
+
+
+@pytest.mark.parametrize("n", [1, 19, 3846, 100003])
+@pytest.mark.parametrize("m", [1, 10, 64, 300])
+def test_mkp_utility_matches_plain_bitwise(cuda, n, m):
+    args = mkp_input(n, m, cuda)
+    before = ops.LAUNCHES["mkp_utility"]
+    got = ops.mkp_utility(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mkp_utility"] == before + 1
+    assert torch.equal(got, ref.mkp_utility_ref(*args))
+
+
+def test_mkp_utility_is_deterministic(cuda):
+    args = mkp_input(3846, 10, cuda)
+    assert torch.equal(ops.mkp_utility(*args), ops.mkp_utility(*args))
+
+
+def test_mkp_utility_refuses_bad_inputs(cuda):
+    v, w, r, sel = mkp_input(10, 3, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        mkp_utility.mkp_utility(v.cpu(), w, r, sel)
+    with pytest.raises(ValueError, match="bool"):
+        ops.mkp_utility(v, w, r, sel.float())
+    with pytest.raises(ValueError, match="float32"):
+        ops.mkp_utility(v.double(), w, r, sel)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.mkp_utility(v, w, r[:2], sel)
+
+
+def test_device_mkp_greedy_equals_cpu(cuda):
+    rng = np.random.default_rng(4)
+    w = rng.integers(0, 30, size=(500, 10)).astype(float)
+    v = w.sum(axis=1) + rng.uniform(0, 5, 500)
+    cap = 0.05 * w.sum(axis=0)
+    a = engine.solve_mkp_greedy_device(v, w, cap, 13, device=cuda)
+    b = engine.solve_mkp_greedy_device(v, w, cap, 13, device="cpu")
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+# ---------------------------------------------------------------------------
+# the fleet path
+# ---------------------------------------------------------------------------
+
+def test_hierarchical_equals_flat_at_full_shards(cuda):
+    pool = ClientPoolState.random(300_000, 10, np.random.default_rng(3))
+    th = np.full(9, 0.05)
+    mirror = pool.device_mirror(shard_cap=131072, device=cuda)
+    assert mirror.num_shards == 3
+    for budget in (500.0, 20_000.0):
+        stats = {}
+        rows, ts, tc, nv = engine.hierarchical_greedy_knapsack(
+            pool, budget, th, stats=stats)
+        frows, fts, ftc, fnv = engine._flat_pool_greedy(pool, budget, th)
+        assert stats["path"] == "frontier"
+        np.testing.assert_array_equal(rows, frows)
+        assert (ts, tc, nv) == (fts, ftc, fnv)

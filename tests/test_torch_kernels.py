@@ -1,23 +1,34 @@
-"""Port parity: the plain PyTorch ``fedavg_agg_quality`` against the JAX
-package's oracle (``repro.kernels.ref``) and its Pallas kernel in
-interpret mode, over ragged K x P in f32 and bf16; and the dispatching
-wrapper's CPU behaviour. The CUDA kernel itself is held against the
-plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""Port parity: the plain PyTorch versions of the port's kernels against
+the JAX package's oracles (``repro.kernels.ref``) and its Pallas kernels
+in interpret mode; and the dispatching wrappers' CPU behaviour. The
+CUDA kernels themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+
+- ``fedavg_agg_quality`` over ragged K x P in f32 and bf16;
+- ``segmented_topk`` over the shape sweep of tests/test_scale_plane.py
+  and at small C, with lowest-lane ties and -inf padding: exact (values
+  and lanes of every finite entry);
+- ``mkp_utility`` over ragged n x m.
 
 Tolerances: both sides sum in f32 but in different orders, so the f32
 outputs agree to a few ulps of the largest partial sum (rtol 1e-5,
 atol 1e-5 on unit-normal data). A bf16 agg is the f32 agg rounded to
 bf16, and an ulp of difference in f32 can move that rounding by one
-bf16 ulp (rtol 2**-7).
+bf16 ulp (rtol 2**-7). ``mkp_utility``: the JAX oracle's penalty is a
+dot whose order XLA chooses, the port's a left-to-right column sum, so
+utilities agree to a few f32 ulps (rtol 1e-6); which items are
+feasible (finite) is exact.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fedavg_agg import fedavg_agg_quality as pallas_agg_quality
-from repro_torch.kernels import fedavg_agg, ops, ref
+from repro_torch.kernels import (build, fedavg_agg, mkp_utility, ops, ref,
+                                 segmented_topk)
 
 SHAPES = [(1, 1), (1, 64), (3, 130), (4, 128), (8, 50), (13, 1000),
           (13, 4097), (64, 255)]
@@ -99,11 +110,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(fedavg_agg, "BUILD_DIR", tmp_path / "build")
-    fedavg_agg.library.cache_clear()
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    build.library.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        fedavg_agg.library()
-    fedavg_agg.library.cache_clear()
+        build.library()
+    build.library.cache_clear()
+
+
+def test_build_compiles_every_source_into_one_library():
+    names = [p.name for p in build.sources()]
+    assert names == sorted(["fedavg_agg_quality.cu", "mkp_utility.cu",
+                            "segmented_topk.cu"])
+    assert build._lib_path().parent == build.BUILD_DIR
 
 
 def test_grid_depends_on_p_only():
@@ -111,3 +129,139 @@ def test_grid_depends_on_p_only():
     assert fedavg_agg.num_blocks(256) == 1
     assert fedavg_agg.num_blocks(257) == 2
     assert fedavg_agg.num_blocks(1_070_794) == fedavg_agg.MAX_BLOCKS
+
+
+# ---------------------------------------------------------------------------
+# segmented_topk
+# ---------------------------------------------------------------------------
+
+def assert_topk_equal(port, vals, lanes):
+    """Equal values everywhere and equal lanes at every finite entry (a
+    -inf slot's lane is not part of the contract)."""
+    pv, pl = port
+    vals, lanes = np.asarray(vals), np.asarray(lanes)
+    assert pv.dtype == torch.float32 and pl.dtype == torch.int32
+    np.testing.assert_array_equal(pv.numpy(), vals)
+    fin = np.isfinite(vals)
+    np.testing.assert_array_equal(pl.numpy()[fin], lanes[fin])
+
+
+@pytest.mark.parametrize("S,C,k", [(1, 8, 3), (4, 64, 8), (7, 129, 16),
+                                   (3, 32, 32), (2, 16, 40), (3, 1000, 7),
+                                   (2, 5, 1)])
+def test_segmented_topk_plain_matches_jax(S, C, k):
+    x = np.random.default_rng(S * C + k).normal(size=(S, C)).astype(np.float32)
+    x[0, ::3] = -np.inf                            # -inf padding in row 0
+    port = ref.segmented_topk_ref(torch.as_tensor(x), k)
+    assert_topk_equal(port, *jref.segmented_topk_ref(jnp.asarray(x), k))
+    if C <= 129:                                   # interpret runs k passes
+        assert_topk_equal(port, *jops.segmented_topk(jnp.asarray(x), k,
+                                                     interpret=True))
+
+
+def test_segmented_topk_ties_and_exhaustion():
+    x = np.full((4, 12), -np.inf, np.float32)
+    x[0, [3, 7, 11]] = 5.0                         # three-way tie
+    x[0, [1, 5]] = 2.0
+    x[1, :] = 1.0                                  # full-row tie
+    x[2, 2] = 1.0                                  # fewer finite than k
+    x[3, :] = np.repeat(np.float32([3.0, 1.0, 2.0]), 4)
+    vals, lanes = ref.segmented_topk_ref(torch.as_tensor(x), 5)
+    np.testing.assert_array_equal(lanes[0].numpy(), [3, 7, 11, 1, 5])
+    np.testing.assert_array_equal(lanes[1].numpy(), [0, 1, 2, 3, 4])
+    assert vals[2, 0] == 1.0 and lanes[2, 0] == 2
+    assert torch.isinf(vals[2, 1:]).all()
+    np.testing.assert_array_equal(lanes[3].numpy(), [0, 1, 2, 3, 8])
+    assert_topk_equal((vals, lanes), *jops.segmented_topk(
+        jnp.asarray(x), 5, interpret=True))
+
+
+def test_segmented_topk_negative_zero_ties_like_pallas():
+    """-0.0 and +0.0 tie, as the Pallas kernel's == compare has them
+    (``lax.top_k``, the JAX oracle, orders -0.0 below +0.0)."""
+    x = np.zeros((1, 8), np.float32)
+    x[0, [1, 4]] = -0.0
+    x[0, 6] = 1.0
+    port = ref.segmented_topk_ref(torch.as_tensor(x), 5)
+    np.testing.assert_array_equal(port[1][0].numpy(), [6, 0, 1, 2, 3])
+    assert_topk_equal(port, *jops.segmented_topk(jnp.asarray(x), 5,
+                                                 interpret=True))
+
+
+def test_segmented_topk_ops_cpu_counts_nothing():
+    x = torch.randn(3, 50, generator=torch.Generator().manual_seed(0))
+    before = ops.LAUNCHES["segmented_topk"]
+    for a, b in zip(ops.segmented_topk(x, 9), ref.segmented_topk_ref(x, 9)):
+        assert torch.equal(a, b)
+    assert ops.LAUNCHES["segmented_topk"] == before
+
+
+def test_segmented_topk_kernel_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        segmented_topk.segmented_topk(torch.zeros(2, 8), 3)
+
+
+def test_segmented_topk_sort_width():
+    assert [segmented_topk.sort_width(k) for k in (1, 2, 3, 4096, 4097)] == \
+        [1, 2, 4, 4096, 8192]
+
+
+# ---------------------------------------------------------------------------
+# mkp_utility
+# ---------------------------------------------------------------------------
+
+def mkp_inputs(n, m, seed=0):
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(1, 10, n)
+    w = rng.integers(0, 30, (n, m)).astype(float)
+    r = 0.3 * w.sum(0) + rng.uniform(0, 1, m)
+    r[0] = 0.0                                     # an exhausted knapsack
+    sel = rng.uniform(size=n) < 0.7
+    return v, w, r, sel
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (19, 10), (37, 10), (64, 8),
+                                 (200, 3), (513, 64)])
+def test_mkp_utility_plain_matches_jax(n, m):
+    v, w, r, sel = mkp_inputs(n, m, seed=n * m)
+    port = ref.mkp_utility_ref(*(torch.as_tensor(a) for a in (v, w, r, sel)))
+    want = np.asarray(jref.mkp_utility_ref(*(jnp.asarray(a)
+                                             for a in (v, w, r, sel))))
+    assert port.dtype == torch.float32
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(port.numpy()), fin)
+    np.testing.assert_allclose(port.numpy()[fin], want[fin], rtol=1e-6)
+    if n <= 64:
+        pallas = np.asarray(jops.mkp_utility(*(jnp.asarray(a)
+                                               for a in (v, w, r, sel)),
+                                             interpret=True))
+        np.testing.assert_array_equal(np.isfinite(pallas), fin)
+        np.testing.assert_allclose(port.numpy()[fin], pallas[fin], rtol=1e-6)
+
+
+def test_mkp_utility_sums_columns_left_to_right():
+    v, w, r, sel = mkp_inputs(50, 10, seed=3)
+    vt, wt, rt = (torch.as_tensor(a, dtype=torch.float32) for a in (v, w, r))
+    got = ref.mkp_utility_ref(vt, wt, rt, torch.as_tensor(sel))
+    s = 1.0 / np.maximum(r.astype(np.float32), np.float32(1e-12))
+    pen = np.zeros(50, np.float32)
+    for k in range(10):
+        pen = pen + w[:, k].astype(np.float32) * s[k]
+    fits = sel & np.all(w.astype(np.float32) <= r.astype(np.float32)
+                        + np.float32(1e-12), axis=1)
+    want = np.where(fits, v.astype(np.float32)
+                    / np.maximum(pen, np.float32(1e-12)), -np.inf)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+def test_mkp_utility_ops_cpu_counts_nothing():
+    args = [torch.as_tensor(a) for a in mkp_inputs(30, 4)]
+    before = ops.LAUNCHES["mkp_utility"]
+    assert torch.equal(ops.mkp_utility(*args), ref.mkp_utility_ref(*args))
+    assert ops.LAUNCHES["mkp_utility"] == before
+
+
+def test_mkp_utility_kernel_refuses_cpu_tensors():
+    args = [torch.as_tensor(a) for a in mkp_inputs(5, 2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        mkp_utility.mkp_utility(*args)

@@ -165,7 +165,10 @@ def test_port_never_imports_jax_or_repro():
         "sys.meta_path.insert(0, B())\n"
         "import repro_torch, repro_torch.core, repro_torch.random\n"
         "import repro_torch.fl.simulation, repro_torch.kernels.ops\n"
-        "import repro_torch.models.cnn\n"
+        "import repro_torch.models.cnn, repro_torch.device\n"
+        "import repro_torch.core.device_pool, repro_torch.core.engine\n"
+        "import repro_torch.kernels.build, repro_torch.kernels.segmented_topk\n"
+        "import repro_torch.kernels.mkp_utility\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
