@@ -25,9 +25,13 @@ plain PyTorch version. Phases, one line each:
 8. the fleet intake: four tasks through
    ``FLServiceProvider.select_pools_batch`` over 1,000,000 clients in 8
    shards, routed through the per-shard frontier; picks equal the flat
-   host greedy before and after 5,000 churn events;
+   host greedy before and after 5,000 churn events, each timed beside
+   the frontier route;
 9. stage 2 on the card: ``generate_subsets(backend="device")`` over task
-   0's pool equals the same call on the CPU (the plain version).
+   0's pool equals the same call on the CPU (the plain version);
+10. the intake below the fleet route: the batched stage-1 greedy over
+    8 tasks and 100,000 clients, numpy (the default) against the device
+    backend, timed, masks compared.
 
 Phases 8 and 9 set their kernel's launch count to 0 just before and read
 it just after. Any failure raises and exits non-zero. The last two
@@ -60,6 +64,12 @@ FLEET_N, SHARD_CAP, FLEET_K = 1_000_000, 131_072, 4096
 FLEET_TH = np.full(9, 0.05)
 FLEET_BUDGETS = [78_889.4 * f for f in (1.0, 0.5, 2.0, 4.0)]
 CHURN_EVENTS = 5_000
+# The intake below HIERARCHICAL_MIN_N: the reference's batch record
+# (BENCH_selection.json "batch": 100,000 clients, 8 tasks); budgets are
+# the fleet's scaled to the pool, at two threshold levels.
+INTAKE_N = 100_000
+INTAKE_BUDGETS = np.array([7_888.94 * f for f in (0.5, 1.0, 2.0, 4.0)] * 2)
+INTAKE_TH = [np.full(9, 0.05)] * 4 + [np.full(9, 0.2)] * 4
 SUBSET_N, SUBSET_DELTA, CLASSES = 10, 3, 10
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 
@@ -489,9 +499,12 @@ def fleet_intake(fleet) -> tuple[int, tuple]:
                         f"and frontier copy {parts['frontier'] * 1e3:.1f} + "
                         f"host merge {(total - sum(parts.values())) * 1e3:.1f}")
         check(len(runs) == len(tasks), f"{label}: one frontier greedy a task")
+        flat[label] = []
         for task, r, (_, st, (rows, ts, tc, nv)) in zip(tasks, res, runs):
+            t = time.perf_counter()
             frows, fts, ftc, fnv = engine._flat_pool_greedy(
                 pool, task.budget, FLEET_TH)
+            flat[label].append(time.perf_counter() - t)
             check(st["path"] == "frontier", f"{label}: routed through the "
                   f"frontier (path {st['path']})")
             check(np.array_equal(rows, frows) and (ts, tc, nv)
@@ -502,7 +515,7 @@ def fleet_intake(fleet) -> tuple[int, tuple]:
                   f"{label}: select_pools_batch ids equal the flat picks")
         return res, [(dt, dict(st), out[0].size) for dt, st, out in runs]
 
-    split = {}
+    split, flat = {}, {}
     engine.hierarchical_greedy_knapsack = spy
     mirror.shard_stats = timed("mask", mirror.shard_stats)
     mirror.frontier = timed("frontier", mirror.frontier)
@@ -529,18 +542,25 @@ def fleet_intake(fleet) -> tuple[int, tuple]:
     check(launches == frontiers > 0,
           f"segmented_topk launches {launches} == frontiers {frontiers}")
     per_task = "; ".join(
-        f"B={t.budget:.1f}: {b[2]} picks, {b[0] * 1e3:.1f} ms, F={b[1]['frontier']}"
-        f", esc {b[1]['escalations']} / after churn {a[0] * 1e3:.1f} ms, "
-        f"F={a[1]['frontier']}, esc {a[1]['escalations']}"
-        for t, b, a in zip(tasks, before, after))
+        f"B={t.budget:.1f}: {b[2]} picks, {b[0] * 1e3:.1f} ms (flat {fb * 1e3:.1f}"
+        f"), F={b[1]['frontier']}, esc {b[1]['escalations']} / after churn "
+        f"{a[0] * 1e3:.1f} ms (flat {fa * 1e3:.1f}), F={a[1]['frontier']}, "
+        f"esc {a[1]['escalations']}"
+        for t, b, a, fb, fa in zip(tasks, before, after, flat["before churn"],
+                                   flat["after churn"]))
     phase(8, f"fleet intake: {FLEET_N} clients (pool built on the host in "
              f"{fleet['build_s']:.2f} s), {mirror.num_shards} shards of "
              f"{SHARD_CAP}; mirror staged in {stage_s * 1e3:.1f} ms; 4 tasks "
              f"through select_pools_batch, path frontier, picks equal the "
              f"flat greedy before and after {CHURN_EVENTS} churn events "
-             f"(sync {sync_s * 1e3:.1f} ms); stage 1 per task: {per_task}; "
+             f"(sync {sync_s * 1e3:.1f} ms); stage 1 per task, beside the "
+             f"flat host greedy (threshold mask + greedy over the whole "
+             f"pool) on the same task: {per_task}; "
              f"4 tasks before churn {split['before churn']}, after churn "
-             f"{split['after churn']}; segmented_topk launches {launches}")
+             f"{split['after churn']}; the flat host greedy for the 4 tasks "
+             f"{sum(flat['before churn']) * 1e3:.1f} ms before churn, "
+             f"{sum(flat['after churn']) * 1e3:.1f} ms after; "
+             f"segmented_topk launches {launches}")
     return launches, task0
 
 
@@ -581,6 +601,60 @@ def stage2_on_card(arrays) -> int:
     return launches
 
 
+def median_wall_ms(fn, reps: int = 7) -> float:
+    """Median host wall time of ``fn`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def intake_batch() -> None:
+    """The batched stage-1 greedy at the intake's shape: the numpy
+    backend (what ``"auto"``, and so ``select_pools_batch`` below
+    ``HIERARCHICAL_MIN_N``, runs) against the f32 device backend, each
+    timed end to end (host arrays in, masks out), on the pool's integer
+    costs and on real-valued costs."""
+    from repro_torch.core import engine
+    from repro_torch.core.pool import ClientPoolState
+    T, lines = INTAKE_BUDGETS.size, []
+    for integer in (True, False):
+        pool = ClientPoolState.random(INTAKE_N, CLASSES,
+                                      np.random.default_rng(5),
+                                      integer_cost=integer)
+        valid = np.stack([pool.threshold_mask(th) for th in INTAKE_TH])
+        args = (pool.overall, pool.costs, INTAKE_BUDGETS, valid)
+        numpy_ms = median_wall_ms(
+            lambda: engine.greedy_knapsack_batch(*args, backend="numpy"))
+        device_ms = median_wall_ms(
+            lambda: engine.greedy_knapsack_batch(*args, backend="device"))
+        exp = engine.greedy_knapsack_batch(*args, backend="numpy")
+        got = engine.greedy_knapsack_batch(*args, backend="device")
+        auto = engine.greedy_knapsack_batch(*args)
+        check(all(np.array_equal(a, b) for a, b in zip(auto, exp)),
+              "auto runs the numpy batch on the card")
+        picks = exp[0].sum(1)
+        diff = (got[0] ^ exp[0]).sum(1)
+        same = int((diff == 0).sum())
+        kind = "integer" if integer else "real-valued"
+        lines.append(
+            f"{kind} costs: numpy {numpy_ms:.2f} ms, device {device_ms:.2f} "
+            f"ms; picks {picks.min()}-{picks.max()} a task; device masks "
+            f"equal numpy's in {same}/{T} tasks (clients in one mask only: "
+            f"{diff.tolist()}; total score gap "
+            f"{float(np.abs(got[1] - exp[1]).max()):.3g})")
+        # Exact by construction on integer costs (f32 prefix sums are
+        # exact); on real-valued costs f32 rounding could move a stop by
+        # a client, and this seeded pool shows whether it does.
+        check(same == T, f"on {kind} costs the device batch equals the "
+              "numpy batch")
+    phase(10, f"intake batch, {T} tasks over {INTAKE_N} clients (below "
+              f"HIERARCHICAL_MIN_N), median wall of 7: " + " | ".join(lines))
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -600,6 +674,7 @@ def main() -> int:
     errs = new_kernels_vs_plain()
     topk_launches, task0 = fleet_intake(fleet)
     mkp_launches = stage2_on_card(task0)
+    intake_batch()
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",

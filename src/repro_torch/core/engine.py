@@ -135,8 +135,9 @@ def greedy_knapsack_batch(scores: np.ndarray, costs: np.ndarray,
     ``(T, n)`` masked cumulative sum — per-task work is O(n), not
     O(n log n), and fully vectorized over tasks. ``backend="device"``
     instead sorts and scans every task on the device (``device``, None ->
-    ``cuda``), the reference's jit+vmap ``backend="jax"``; ``"auto"``
-    picks the device when CUDA is present and numpy elsewhere.
+    ``cuda``), the reference's jit+vmap ``backend="jax"``. ``"auto"``
+    is numpy, the reference's own choice off the TPU: it is exact, and
+    the same call gives the same picks with or without CUDA.
 
     Args:
       scores, costs: (n,) shared client pool columns.
@@ -152,7 +153,7 @@ def greedy_knapsack_batch(scores: np.ndarray, costs: np.ndarray,
     host in float64.
     """
     if backend == "auto":
-        backend = "device" if torch.cuda.is_available() else "numpy"
+        backend = "numpy"
     if backend not in ("numpy", "device"):
         raise ValueError(f"unknown backend {backend!r}: the port's backends "
                          "are 'numpy' and 'device' (the reference's 'jax')")
@@ -349,15 +350,6 @@ def mkp_pseudo_utility(values: np.ndarray, weights: np.ndarray,
     return np.where(fits, util, -np.inf), fits
 
 
-def mkp_pseudo_utility_device(values: torch.Tensor, weights: torch.Tensor,
-                              residual: torch.Tensor,
-                              selectable: torch.Tensor) -> torch.Tensor:
-    """Device path of :func:`mkp_pseudo_utility` on f32 tensors: the
-    ``mkp_utility`` CUDA kernel for CUDA tensors, its plain version for
-    CPU tensors. Returns the (n,) utilities (``-inf`` = cannot pick)."""
-    return ops.mkp_utility(values, weights, residual, selectable)
-
-
 def solve_mkp_greedy_device(values, weights, capacities,
                             max_size: int | None = None, device=None
                             ) -> tuple[np.ndarray, np.ndarray]:
@@ -385,7 +377,7 @@ def solve_mkp_greedy_device(values, weights, capacities,
     in_sel = torch.zeros(n, dtype=torch.bool, device=dev)
     zero = torch.zeros(m, dtype=torch.float32, device=dev)
     for _ in range(n if max_size is None else int(max_size)):
-        util = mkp_pseudo_utility_device(v, w, cap - used, ~in_sel)
+        util = ops.mkp_utility(v, w, cap - used, ~in_sel)
         j = torch.argmax(util).view(1)          # first maximum, as jnp
         ok = torch.isfinite(util[j])            # (1,), stays on the device
         in_sel[j] = in_sel[j] | ok

@@ -177,6 +177,40 @@ def test_device_mkp_greedy_equals_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the batched stage-1 greedy (the intake below the fleet route)
+# ---------------------------------------------------------------------------
+
+def intake_args(integer_cost):
+    pool = ClientPoolState.random(100_000, 10, np.random.default_rng(5),
+                                  integer_cost=integer_cost)
+    ths = [np.full(9, 0.05)] * 4 + [np.full(9, 0.2)] * 4
+    valid = np.stack([pool.threshold_mask(th) for th in ths])
+    budgets = np.array([7_888.94 * f for f in (0.5, 1.0, 2.0, 4.0)] * 2)
+    return pool.overall, pool.costs, budgets, valid
+
+
+def test_batch_auto_is_numpy_on_the_card(cuda):
+    args = intake_args(True)
+    for a, b in zip(engine.greedy_knapsack_batch(*args),
+                    engine.greedy_knapsack_batch(*args, backend="numpy")):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("integer_cost", [True, False])
+def test_device_batch_equals_numpy_at_intake_shape(cuda, integer_cost):
+    """8 tasks over 100,000 clients. Integer costs make the f32 prefix
+    sums exact, so the card's batch picks what the f64 numpy batch
+    picks; on real-valued costs f32 rounding could move a task's stop
+    by a client, and on this seeded pool it does not."""
+    args = intake_args(integer_cost)
+    got = engine.greedy_knapsack_batch(*args, backend="device", device=cuda)
+    exp = engine.greedy_knapsack_batch(*args, backend="numpy")
+    np.testing.assert_array_equal(got[0], exp[0])
+    np.testing.assert_array_equal(got[1], exp[1])
+    np.testing.assert_array_equal(got[2], exp[2])
+
+
+# ---------------------------------------------------------------------------
 # the fleet path
 # ---------------------------------------------------------------------------
 

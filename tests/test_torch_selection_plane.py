@@ -29,6 +29,7 @@ from repro.core import TaskRequest as RefTask
 from repro.core import device_pool as ref_device_pool
 from repro.core import drain as ref_drain
 from repro.core import engine as ref_engine
+from repro.core import fairness as ref_fairness
 from repro.core import mkp as ref_mkp
 from repro.core import scheduling as ref_scheduling
 from repro.core import selection as ref_selection
@@ -36,10 +37,11 @@ from repro.core import submit as ref_submit
 from repro.core.criteria import random_histograms as ref_random_histograms
 from repro.core.criteria import random_profiles as ref_random_profiles
 from repro.core.pool import ClientPoolState as RefPool
+from repro.kernels import ref as ref_kernels_ref
 from repro_torch.core import (DevicePoolState, FLServiceProvider,
                               ServiceScheduler, TaskRequest, device_pool,
-                              drain, engine, mkp, scheduling, selection,
-                              submit)
+                              drain, engine, fairness, mkp, scheduling,
+                              selection, submit)
 from repro_torch.core.criteria import random_histograms, random_profiles
 from repro_torch.core.pool import ClientPoolState
 from repro_torch.kernels import ops
@@ -322,8 +324,8 @@ class TestGreedyBatch:
         np.testing.assert_array_equal(tc, masks @ c)
 
     def test_auto_is_numpy_without_cuda(self):
-        if torch.cuda.is_available():
-            pytest.skip("this machine has CUDA: auto picks the device")
+        """``"auto"`` is numpy with or without CUDA (the reference's own
+        choice off the TPU), so the default picks never depend on it."""
         s, c, budgets, valid = knapsack(5, 200, 3)
         a = engine.greedy_knapsack_batch(s, c, budgets, valid)
         b = engine.greedy_knapsack_batch(s, c, budgets, valid,
@@ -407,6 +409,50 @@ class TestDeviceMKP:
                                         backend="device", device=CPU)
         assert p.subsets == r.subsets and p.counts == r.counts
         np.testing.assert_array_equal(np.asarray(p.nids), np.asarray(r.nids))
+
+    @pytest.mark.parametrize("n_clients,n,delta,seed",
+                             [(60, 5, 1, 21), (150, 10, 3, 5)])
+    def test_generate_subsets_device_default_capacities(self, n_clients, n,
+                                                        delta, seed):
+        """At the default capacities, what every service path uses, the
+        first utilities tie in exact arithmetic (see above), so the two
+        packages' schedules may differ from the first pick. What holds:
+        the first utilities agree to rtol 1e-6 and all equal the
+        capacity to that tolerance (a tie, not a different ranking);
+        from the same first pick on, the MKP greedy picks the same
+        items; and both schedules cover the pool within x*."""
+        ref, port = pools(n_clients, seed)
+        H = port.histograms
+        cap = scheduling.default_capacities_arrays(H, n)
+        v = H.sum(axis=1)
+        all_items = np.ones(n_clients, bool)
+        u_p = ops.mkp_utility(*(torch.tensor(a, dtype=torch.float32)
+                                for a in (v, H, cap)),
+                              torch.tensor(all_items)).numpy()
+        u_r = np.asarray(ref_kernels_ref.mkp_utility_ref(v, H, cap,
+                                                         all_items))
+        np.testing.assert_allclose(u_p, u_r, rtol=1e-6)
+        np.testing.assert_allclose(u_p, np.full(n_clients, cap[0]),
+                                   rtol=1e-6)
+        size = n + delta
+        for first in {int(np.argmax(u_p)), int(np.argmax(u_r)), 7}:
+            rest = np.delete(np.arange(n_clients), first)
+            residual = (cap.astype(np.float32) - H[first].astype(np.float32))
+            r_mask, r_used = ref_engine.solve_mkp_greedy_jax(
+                v[rest], H[rest], residual, size - 1)
+            mask, used = engine.solve_mkp_greedy_device(
+                v[rest], H[rest], residual, size - 1, device=CPU)
+            assert mask.any()
+            np.testing.assert_array_equal(mask, r_mask)
+            np.testing.assert_array_equal(used, r_used)
+        r = ref_scheduling.generate_subsets(ref, n, delta, backend="jax")
+        p = scheduling.generate_subsets(port, n, delta, backend="device",
+                                        device=CPU)
+        ids = sorted(port.client_ids.tolist())
+        for sched, report in ((r, ref_fairness.fairness_report),
+                              (p, fairness.fairness_report)):
+            rep = report(sched, ids, x_star=3)
+            assert rep["coverage"] and rep["bounded"]
 
 
 # ---------------------------------------------------------------------------
