@@ -7,14 +7,14 @@ paths on the card and holds every CUDA kernel of those paths against its
 plain PyTorch version. Phases, one line each:
 
 1. the card: fail without CUDA; print ``nvidia-smi`` name and power limit;
-2. build the kernels from the sources in this checkout (one ``nvcc`` call
-   into ``build/``), with the build time and ptxas registers and spills
-   of every kernel entry;
+2. build the kernels from the sources in this checkout (one ``nvcc`` a
+   source, all started together, and one link into ``build/``), with the
+   build time and ptxas registers and spills of every kernel entry;
 3. ``fedavg_agg_quality`` against its plain version on the card, at the
    service loop's shape and at ragged shapes, in f32 and bf16;
 4. one round chunk (S=4, CIFAR_CNN) from the same parameters through
-   the kernel and through the plain aggregate (TF32 off for matmuls and
-   cuDNN convolutions, so both runs are full f32);
+   the kernels and through their plain versions (TF32 off for matmuls
+   and cuDNN convolutions, so both runs are full f32);
 5. the service loop: ``run_fl_experiment(..., data_plane="device")`` on
    the card with launch counts set to 0 just before and read just after;
 6. each kernel, its plain version and its library yardstick timed with
@@ -31,11 +31,22 @@ plain PyTorch version. Phases, one line each:
    0's pool equals the same call on the CPU (the plain version);
 10. the intake below the fleet route: the batched stage-1 greedy over
     8 tasks and 100,000 clients, numpy (the default) against the device
-    backend, timed, masks compared.
+    backend, timed, masks compared;
+11. the codec kernels against their plain versions: ``topk_sparsify``,
+    ``quantize_i8`` and ``dequantize_i8`` exact, ``fedavg_agg_quality_i8``
+    within f32 tolerance, at the compressed loop's shapes and ragged
+    ones (chunks 100-512, zero chunks, saturation, ties, k from 1 to P);
+12. the compressed update plane: the service loop at CIFAR_CNN width
+    with ``compression="int8"``, then ``"topk:0.05+int8"`` with the
+    FedAdam server, 16 rounds each; every codec kernel launches once a
+    round where its codec uses it and never elsewhere, and each round's
+    ``bytes`` is arrived clients x the codec's wire size;
+13. ``compression="none"`` gives the uncompressed chunk bit for bit.
 
-Phases 8 and 9 set their kernel's launch count to 0 just before and read
-it just after. Any failure raises and exits non-zero. The last two
-lines are the kernel records and ``{"ok": true, "device": {...}}``.
+Phases 5, 8, 9 and 12 set their kernels' launch counts to 0 just before
+and read them just after. Any failure raises and exits non-zero. The
+last two lines are the kernel records and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -71,6 +82,12 @@ INTAKE_N = 100_000
 INTAKE_BUDGETS = np.array([7_888.94 * f for f in (0.5, 1.0, 2.0, 4.0)] * 2)
 INTAKE_TH = [np.full(9, 0.05)] * 4 + [np.full(9, 0.2)] * 4
 SUBSET_N, SUBSET_DELTA, CLASSES = 10, 3, 10
+# The compressed update plane at the main path's shape: k = ceil(0.05 P)
+# for topk:0.05, 256-lane int8 chunks; wire bytes per client (the
+# reference's fl.compression.bytes_per_client) raw, int8, topk:0.05+int8.
+TOPK_FRAC, CHUNK = 0.05, 256
+MAIN_TOPK = 53_540
+WIRE = {None: 4_283_176, "int8": 1_087_526, "topk:0.05+int8": 268_540}
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 
 
@@ -98,35 +115,39 @@ def build() -> None:
     t0 = time.perf_counter()
     kbuild.library()
     dt = time.perf_counter() - t0
-    phase(2, f"built {', '.join(p.name for p in kbuild.sources())} in one "
-             f"nvcc call, {dt:.2f} s; ptxas per entry: "
+    phase(2, f"built {', '.join(p.name for p in kbuild.sources())}, one "
+             f"nvcc a source in parallel and a link, {dt:.2f} s; ptxas per "
+             f"entry: "
              + "; ".join(ptxas_entries(kbuild.build_log())))
 
 
 def ptxas_entries(log: str) -> list[str]:
-    """One ``name<dtype,K bucket>: registers, spills`` item per kernel
-    entry of an ``nvcc -Xptxas -v`` log. Template arguments are read from
-    the mangled name (``IfLi16E`` is <f32, 16>), past any namespace."""
-    entries, name, spill = [], None, ""
+    """One ``name<template arguments>: registers, spills`` item per kernel
+    entry of an ``nvcc -Xptxas -v`` log, the names demangled by the
+    toolkit's ``cu++filt`` (beside ``nvcc``)."""
+    from repro_torch.kernels import build as kbuild
+    entries, mangled, name, spill = [], [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            rest = m.group(1)
-            while d := re.match(r"\d+", rest):     # <len><name> parts
-                n = int(d.group(0))
-                name, rest = rest[d.end():d.end() + n], rest[d.end() + n:]
-            targs = re.match(r"I(f|13__nv_bfloat16)Li(\d+)E", rest)
-            if targs:
-                dtype = "f32" if targs.group(1) == "f" else "bf16"
-                name += f"<{dtype},{targs.group(2)}>"
-            spill = ""
+            name, spill = m.group(1), ""
         elif "spill stores" in line:
             spill = line.strip()
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
-            entries.append(f"{name}: {m.group(1)} registers, {spill}")
+            mangled.append(name)
+            entries.append(f"{m.group(1)} registers, {spill}")
             name = None
     check(bool(entries), "ptxas report lists the kernel entries")
-    return entries
+    filt = Path(kbuild._nvcc()).with_name("cu++filt")
+    names = subprocess.run([str(filt)], input="\n".join(mangled),
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.split("\n")
+    out = []
+    for full, rest in zip(names, entries):
+        short = full.replace("(anonymous namespace)::", "").replace(
+            "<unnamed>::", "").replace("(int)", "").split("(")[0]
+        out.append(f"{short.removeprefix('void ').strip()}: {rest}")
+    return out
 
 
 def kernel_vs_plain() -> float:
@@ -164,13 +185,13 @@ def kernel_vs_plain() -> float:
     return main_err
 
 
-def chunk_kernel_vs_plain() -> None:
+def cifar_chunk():
+    """A CIFAR_CNN round chunk's inputs on the card (S=4, K=13): loss,
+    staged data, schedule, parameters, key and the round options."""
     from repro_torch import random as trandom
     from repro_torch.data.synthetic import make_classification_data
     from repro_torch.fl import device_data
     from repro_torch.fl.partition import partition_labels
-    from repro_torch.fl.round import make_fl_rounds_scan
-    from repro_torch.kernels import ref
     from repro_torch.models import cnn
     cfg = cnn.CIFAR_CNN
     data = make_classification_data("cifar", 4000, seed=1)
@@ -188,11 +209,17 @@ def chunk_kernel_vs_plain() -> None:
     params = cnn.init_params(cfg, torch.Generator().manual_seed(1), "cuda")
     key = trandom.prng_key(1, "cuda")
     kw = dict(local_lr=0.1, local_steps=2, batch_size=16, dropout_rate=0.05)
-    loss = lambda p, b: cnn.loss_fn(cfg, p, b)
+    return (lambda p, b: cnn.loss_fn(cfg, p, b)), dd, sched, params, key, kw
+
+
+def chunk_kernel_vs_plain() -> None:
+    from repro_torch.fl.round import make_fl_rounds_scan
+    from repro_torch.kernels import ops
+    loss, dd, sched, params, key, kw = cifar_chunk()
+    S, K = sched["rows"].shape
     p_k, i_k = make_fl_rounds_scan(loss, **kw)(params, dd, sched, key)
-    p_p, i_p = make_fl_rounds_scan(
-        loss, aggregate=ref.fedavg_agg_quality_ref, **kw)(params, dd, sched,
-                                                          key)
+    p_p, i_p = make_fl_rounds_scan(loss, kernels=ops.PLAIN, **kw)(
+        params, dd, sched, key)
     torch.cuda.synchronize()
     dp = max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k)
     dq = float((i_k["q_values"] - i_p["q_values"]).abs().max())
@@ -206,42 +233,60 @@ def chunk_kernel_vs_plain() -> None:
              f"(tol 1e-4), max |dq| {dq:.3e} (tol 1e-3), masks equal")
 
 
-def slice_run() -> int:
-    from repro_torch.core import fairness, lifecycle
-    from repro_torch.fl.simulation import run_fl_experiment
+def service_loop(**kwargs):
+    """``run_fl_experiment("cifar", "type2", data_plane="device", ...)`` on
+    the card with every launch count set to 0 just before and read just
+    after. Returns the result, the wall time, the service loop's own time
+    (``lifecycle.drain``: stage 2, training, reputation, without the data
+    generation and staging around it), the launch counts, and each
+    round's returned-client count as ``DeviceFLSim.collect`` reported it."""
+    from repro_torch.core import lifecycle
+    from repro_torch.fl.simulation import DeviceFLSim, run_fl_experiment
     from repro_torch.kernels import ops
-    rounds = 24
-    drain, loop_s = lifecycle.drain, []
+    drain, collect = lifecycle.drain, DeviceFLSim.collect
+    loop_s, arrived = [], []
 
-    def timed_drain(*args, **kwargs):
-        """The service loop alone (stage 2, training, reputation),
-        without the data generation and staging around it."""
+    def timed_drain(*args, **kw):
         t = time.perf_counter()
-        result = drain(*args, **kwargs)
+        result = drain(*args, **kw)
         torch.cuda.synchronize()
         loop_s.append(time.perf_counter() - t)
         return result
 
-    lifecycle.drain = timed_drain
-    ops.LAUNCHES["fedavg_agg_quality"] = 0
+    def counted_collect(self, handles):
+        out = collect(self, handles)
+        arrived.extend(int(mask.sum()) for mask, _, _ in out)
+        return out
+
+    lifecycle.drain, DeviceFLSim.collect = timed_drain, counted_collect
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         out = run_fl_experiment("cifar", "type2", n_clients=100,
-                                rounds=rounds, n_train=50_000,
-                                n_test=10_000, subset_size=10,
-                                subset_delta=3, data_plane="device",
-                                round_chunk=8)
+                                subset_size=10, subset_delta=3,
+                                data_plane="device", round_chunk=8, **kwargs)
         torch.cuda.synchronize()
     finally:
-        lifecycle.drain = drain
+        lifecycle.drain, DeviceFLSim.collect = drain, collect
     wall = time.perf_counter() - t0
-    launches = ops.LAUNCHES["fedavg_agg_quality"]
+    check(len(loop_s) == 1, "one service loop per run")
+    return out, wall, loop_s[0], dict(ops.LAUNCHES), arrived
+
+
+def slice_run() -> tuple[int, float]:
+    """Phase 5; returns the kernel's launches and ms per round."""
+    from repro_torch.core import fairness
+    rounds = 24
+    out, wall, loop_s, counts, _ = service_loop(rounds=rounds,
+                                                n_train=50_000,
+                                                n_test=10_000)
+    launches = counts["fedavg_agg_quality"]
     hist, state = out["history"], out["state"]
     trained = len(hist)
     losses = [h["loss"] for h in hist]
     check(trained == rounds, f"{trained} rounds trained, asked {rounds}")
-    check(len(loop_s) == 1, "one service loop per run")
     check(launches == trained,
           f"kernel launches {launches} == rounds trained {trained}")
     check(all(np.isfinite(losses)), "finite losses")
@@ -250,14 +295,14 @@ def slice_run() -> int:
                                    sorted(state.pool), x_star=3)
     check(rep["coverage"] and rep["bounded"],
           "first period's schedule covers the pool within x*")
+    ms = loop_s / trained * 1e3
     phase(5, f"slice: pool {len(state.pool)} clients, {trained} rounds, "
              f"loss first {losses[0]:.4f} last {losses[-1]:.4f}, final "
              f"accuracy {out['final_accuracy']:.4f}; wall {wall:.2f} s, of "
-             f"which the service loop {loop_s[0]:.2f} s = "
-             f"{loop_s[0] / trained * 1e3:.1f} ms/round (rest: data "
-             f"set-up and final eval); fedavg_agg_quality launches "
-             f"{launches}")
-    return launches
+             f"which the service loop {loop_s:.2f} s = {ms:.1f} ms/round "
+             f"(rest: data set-up and final eval); fedavg_agg_quality "
+             f"launches {launches}")
+    return launches, ms
 
 
 def time_ms(fn, samples: int = 20, calls: int = 10) -> float:
@@ -335,10 +380,58 @@ def timing(fleet) -> dict:
                  f"{plain_ms:.4f} ms, torch.mv(w, s) (penalty only) "
                  f"{mv_ms:.4f} ms; bound {out['mkp_utility']['bound_ms']:.6f} ms "
                  f"({nbytes} B)")
+    lines += compression_timing(u, w, out)
     phase(6, "median of 20 replays of a graph of 10 calls; bounds at "
              "3.35 TB/s and 67 TFLOP/s f32: "
              + " | ".join(lines))
     return out
+
+
+def compression_timing(u, w, out) -> list[str]:
+    """The codec kernels at the compressed loop's shapes: the deltas U
+    (13, 1,070,794) and, for topk:0.05+int8, their k = 53,540 kept values
+    a row. Fills ``out`` and returns the phase-6 lines."""
+    from repro_torch.kernels import ops, ref
+    K, P, k = MAIN_K, MAIN_P, MAIN_TOPK
+    nc, nck = -(-P // CHUNK), -(-k // CHUNK)
+    vals, _ = ops.topk_sparsify(u, k)
+    v, sc = ops.quantize_i8(u, CHUNK)
+    vk, sk = ops.quantize_i8(vals, CHUNK)
+    cases = {   # name: kernel, plain, library call or None, bytes, flops
+        "topk_sparsify": (lambda: ops.topk_sparsify(u, k),
+                          lambda: ref.topk_sparsify_ref(u, k),
+                          lambda: torch.topk(u.abs(), k, dim=1),
+                          4 * K * P + 8 * K * k, K * P),
+        "quantize_i8": (lambda: ops.quantize_i8(u, CHUNK),
+                        lambda: ref.quantize_i8_ref(u, CHUNK), None,
+                        5 * K * P + 4 * K * nc, 3 * K * P),
+        "quantize_i8 (top-k values)": (
+            lambda: ops.quantize_i8(vals, CHUNK),
+            lambda: ref.quantize_i8_ref(vals, CHUNK), None,
+            5 * K * k + 4 * K * nck, 3 * K * k),
+        "dequantize_i8": (lambda: ops.dequantize_i8(vk, sk, CHUNK),
+                          lambda: ref.dequantize_i8_ref(vk, sk, CHUNK), None,
+                          5 * K * k + 4 * K * nck, K * k),
+        "fedavg_agg_quality_i8": (
+            lambda: ops.fedavg_agg_quality_i8(v, sc, w, CHUNK),
+            lambda: ref.fedavg_agg_quality_i8_ref(v, sc, w, CHUNK), None,
+            K * P + 4 * (K * nc + K + P + 2 * K + 1), 7 * K * P + 2 * P)}
+    lines = []
+    for name, (fn, plain, lib, nbytes, flops) in cases.items():
+        t = {"ms": time_ms(fn), "plain_ms": time_ms(plain),
+             "library_ms": None if lib is None else time_ms(lib),
+             **bound(nbytes, flops)}
+        lib_s = "" if lib is None else \
+            f", torch.topk(|U|) {t['library_ms']:.4f} ms"
+        shape = f"({K}, {k})" if "top-k" in name or name == "dequantize_i8" \
+            else f"({K}, {P})"
+        lines.append(f"{name} {shape}: kernel {t['ms']:.4f} ms, plain "
+                     f"{t['plain_ms']:.4f} ms{lib_s}; bound "
+                     f"{t['bound_ms']:.4f} ms ({nbytes} B)")
+        out[name] = t
+    out["quantize_i8"]["at_topk_values"] = out.pop(
+        "quantize_i8 (top-k values)")
+    return lines
 
 
 def bound(nbytes: int, flops: int) -> dict:
@@ -655,6 +748,169 @@ def intake_batch() -> None:
               f"HIERARCHICAL_MIN_N), median wall of 7: " + " | ".join(lines))
 
 
+def codec_case(K, P, kind, g):
+    """Phase 11 inputs: unit normals; ``ties``: halves in -1.5..1.5, so
+    many equal |x| of both signs and signed zeros; ``zeros``: the first
+    half of every row zero (all-zero chunks, and all-zero rows where
+    P is small) and row 0's last two values at +-amax (they saturate at
+    +-127)."""
+    if kind == "ties":
+        x = torch.randint(-3, 4, (K, P), generator=g, device="cuda") / 2.0
+        x[0, : min(P, 2)] = torch.tensor([-0.0, 0.0], device="cuda")[:P]
+        return x
+    x = torch.randn(K, P, generator=g, device="cuda")
+    if kind == "zeros":
+        x[:, : max(1, P // 2)] = 0.0
+        if P >= 4:
+            amax = x[0].abs().max()
+            x[0, -2], x[0, -1] = amax, -amax
+    return x
+
+
+def codec_kernels_vs_plain() -> dict:
+    """The four codec kernels against their plain versions on the card:
+    top-k, quantize and dequantize exact; the int8 aggregate within the
+    f32 tolerance of phase 3. Returns max |err| at the main path's
+    shapes."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(11)
+    err, n = {}, {"topk": 0, "quant": 0}
+    for K, P, ks in ((MAIN_K, MAIN_P, (1, MAIN_TOPK)),
+                     (MAIN_K, MAIN_TOPK, (2677, MAIN_TOPK)),
+                     (1, 7, (1, 3, 7)), (MAIN_K, 4097, (1, 4097)),
+                     (3, 100_003, (777,))):
+        for kind in ("normal", "ties", "zeros"):
+            x = codec_case(K, P, kind, g)
+            for k in ks:
+                got, exp = ops.topk_sparsify(x, k), ref.topk_sparsify_ref(x, k)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], exp[0])
+                      and torch.equal(got[1], exp[1]),
+                      f"topk_sparsify K={K} P={P} k={k} {kind}: values and "
+                      f"indices equal the plain version")
+                n["topk"] += 1
+            for chunk in (100, 128, 256, 512):
+                v, s = ops.quantize_i8(x, chunk)
+                ev, es = ref.quantize_i8_ref(x, chunk)
+                d, ed = ops.dequantize_i8(v, s, chunk), \
+                    ref.dequantize_i8_ref(ev, es, chunk)
+                wt = torch.rand(K, generator=g, device="cuda")
+                wt = wt / wt.sum()
+                agg = ops.fedavg_agg_quality_i8(v, s, wt, chunk)
+                eagg = ref.fedavg_agg_quality_i8_ref(ev, es, wt, chunk)
+                torch.cuda.synchronize()
+                what = f"K={K} P={P} chunk={chunk} {kind}"
+                check(torch.equal(v, ev) and torch.equal(s, es),
+                      f"quantize_i8 {what}: values and scales bit-equal")
+                check(torch.equal(d, ed), f"dequantize_i8 {what}: bit-equal")
+                torch.testing.assert_close(agg[0], eagg[0], rtol=1e-5,
+                                           atol=1e-5)
+                for a, b in zip(agg[1:], eagg[1:]):
+                    torch.testing.assert_close(a, b, rtol=1e-5,
+                                               atol=1e-6 * P ** 0.5)
+                if kind == "zeros" and P >= 1024:
+                    check(bool((s[:, 0] == 0).all()) and int(v[0, -2]) == 127
+                          and int(v[0, -1]) == -127,
+                          f"{what}: zero chunks keep scale 0, +-amax saturate")
+                if (K, P, chunk, kind) == (MAIN_K, MAIN_P, CHUNK, "normal"):
+                    err["fedavg_agg_quality_i8"] = max(
+                        float((a - b).abs().max()) for a, b in zip(agg, eagg))
+                    err["quantize_i8"] = float(
+                        (s - es).abs().max()
+                        + (v.int() - ev.int()).abs().max())
+                if (K, P, chunk, kind) == (MAIN_K, MAIN_TOPK, CHUNK, "normal"):
+                    err["dequantize_i8"] = float((d - ed).abs().max())
+                n["quant"] += 1
+    err["topk_sparsify"] = 0.0    # every case above was equal
+    phase(11, f"codec kernels vs plain on the card: topk_sparsify {n['topk']} "
+              f"cases (K x P in 13x{MAIN_P}, 13x{MAIN_TOPK}, 1x7, 13x4097, "
+              f"3x100003; k from 1 to P; normal, heavy ties of both signs, "
+              f"zero halves) equal in values and indices; quantize_i8 and "
+              f"dequantize_i8 bit-equal, fedavg_agg_quality_i8 within rtol "
+              f"1e-5, in {n['quant']} cases (chunks 100, 128, 256, 512; zero "
+              f"chunks keep scale 0, +-amax saturate at +-127); max |err| "
+              f"of fedavg_agg_quality_i8 at 13x{MAIN_P}: "
+              f"{err['fedavg_agg_quality_i8']:.3e}")
+    return err
+
+
+CODEC_KERNELS = ("topk_sparsify", "quantize_i8", "dequantize_i8",
+                 "fedavg_agg_quality_i8", "fedavg_agg_quality")
+CODEC_RUNS = (("int8", None, {"quantize_i8": 1, "fedavg_agg_quality_i8": 1}),
+              ("topk:0.05+int8", "fedadam",
+               {"topk_sparsify": 1, "quantize_i8": 1, "dequantize_i8": 1,
+                "fedavg_agg_quality": 1}))
+
+
+def compressed_loop(base_ms: float) -> dict:
+    """Phase 12: the service loop through each codec at full CIFAR_CNN
+    width, 16 rounds in chunks of 8 on 10,000 training samples. Returns
+    the launches of each codec kernel, summed over the two runs."""
+    from repro_torch.fl.simulation import SimConfig
+    rounds, launches, lines = 16, dict.fromkeys(CODEC_KERNELS, 0), []
+    for comp, opt, per_round in CODEC_RUNS:
+        # FedAdam's step is about lr per coordinate: lr 0.01 (Reddi et al.)
+        sim = SimConfig(server_lr=0.01) if opt else SimConfig()
+        out, wall, loop_s, counts, arrived = service_loop(
+            rounds=rounds, n_train=10_000, n_test=2_000, sim=sim,
+            compression=comp, server_opt=opt)
+        hist = out["history"]
+        trained = len(hist)
+        losses = [h["loss"] for h in hist]
+        check(trained == rounds == len(arrived),
+              f"{comp}: {trained} rounds trained, asked {rounds}")
+        for name in CODEC_KERNELS:
+            want = per_round.get(name, 0) * trained
+            check(counts[name] == want,
+                  f"{comp}: {name} launches {counts[name]} == {want}")
+            launches[name] += counts[name]
+        wire = [h["bytes"] for h in hist]
+        check(wire == [a * WIRE[comp] for a in arrived],
+              f"{comp}: bytes per round == arrived x {WIRE[comp]}")
+        check(all(np.isfinite(losses)), f"{comp}: finite losses")
+        lines.append(
+            f"{comp}{' + ' + opt if opt else ''}: {trained} rounds, loss "
+            f"first {losses[0]:.4f} last {losses[-1]:.4f}, final accuracy "
+            f"{out['final_accuracy']:.4f}; wall {wall:.2f} s, service loop "
+            f"{loop_s:.2f} s = {loop_s / trained * 1e3:.1f} ms/round; "
+            f"{sum(wire) / 1e6:.3f} MB up in {sum(arrived)} uploads of "
+            f"{WIRE[comp]} B ({WIRE[None] / WIRE[comp]:.2f}x fewer than raw); "
+            f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                     if k in CODEC_KERNELS and v))
+    phase(12, "compressed service loop, CIFAR_CNN (P = 1,070,794), 100 "
+              "clients, subsets of 10 +- 3, n_train 10,000: "
+              + " | ".join(lines)
+              + f" | uncompressed (phase 5): {base_ms:.1f} ms/round")
+    return launches
+
+
+def none_is_uncompressed() -> None:
+    """Phase 13: ``compression="none"`` gives the uncompressed chunk's
+    params bit for bit (cuDNN held to deterministic algorithms here, and
+    the uncompressed chunk run twice to show the card repeats)."""
+    from repro_torch.fl.round import make_fl_rounds_scan
+    loss, dd, sched, params, key, kw = cifar_chunk()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [make_fl_rounds_scan(loss, compression=c, **kw)(
+            params, dd, sched, key) for c in (None, None, "none")]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (p0, i0), (p1, _), (p2, i2) = runs
+    check(all(torch.equal(p0[n], p1[n]) for n in p0),
+          "the uncompressed chunk repeats bit for bit")
+    check(all(torch.equal(p0[n], p2[n]) for n in p0)
+          and sorted(i0) == sorted(i2)
+          and all(torch.equal(i0[k], i2[k]) for k in i0),
+          'compression="none" equals compression=None bit for bit')
+    S = sched["rows"].shape[0]
+    phase(13, f'compression="none" vs None: one chunk (S={S}, '
+              f"K={MAIN_K}, CIFAR_CNN) from the same params: params and "
+              f"round metrics bit-identical, no bytes column")
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -668,13 +924,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     chunk_kernel_vs_plain()
-    launches = slice_run()
+    launches, base_ms = slice_run()
     fleet = fleet_pool()
     t = timing(fleet)
     errs = new_kernels_vs_plain()
     topk_launches, task0 = fleet_intake(fleet)
     mkp_launches = stage2_on_card(task0)
     intake_batch()
+    errs.update(codec_kernels_vs_plain())
+    codec_launches = compressed_loop(base_ms)
+    none_is_uncompressed()
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",
@@ -686,6 +945,14 @@ def main() -> int:
         record("mkp_utility", csrc + "mkp_utility.cu",
                "src/repro/kernels/mkp_utility.py:42", mkp_launches,
                errs["mkp_utility"], t["mkp_utility"])]
+    for name, source, line in (
+            ("topk_sparsify", "segmented_topk.cu", 81),
+            ("quantize_i8", "quantize_i8.cu", 117),
+            ("dequantize_i8", "quantize_i8.cu", 145),
+            ("fedavg_agg_quality_i8", "fedavg_agg_quality.cu", 197)):
+        records.append(record(name, csrc + source,
+                              f"src/repro/kernels/compression.py:{line}",
+                              codec_launches[name], errs[name], t[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,5 @@
+from .compression import (CompressionSpec, aggregate_compressed,
+                          bytes_per_client, compress, decompress, roundtrip)
 from .device_data import DeviceDataset
 from .partition import (client_histograms, dense_index_pools,
                         dirichlet_partition, partition_labels)

@@ -8,17 +8,19 @@ client with ``torch.func`` (``grad`` inside ``vmap`` over the client
 axis), and applies the fused aggregation + quality pass
 (kernels.ops.fedavg_agg_quality: one read of the stacked deltas yields
 Δ_t and every q_t cosine), then the server step w_{t+1} = w_t − η Δ_t
-(paper §III). Nothing in here forces a result to the host, so on the
-card a chunk is enqueued and the caller decides when to block.
+(paper §III), or a server optimizer's step (FedAdam/FedYogi). With a
+compression spec the server aggregates from the encoded deltas
+(fl.compression). Nothing in here forces a result to the host, so on
+the card a chunk is enqueued and the caller decides when to block.
 
 Parameters are flat ``dict[str, Tensor]`` (models.cnn). Leaves are
 ordered by sorted name, which is JAX's pytree order for the reference's
 nested dicts (``b`` before ``w``), so the flattened (K, P) matrix has
 the reference's column order.
 
-Not ported yet (ROADMAP.md Queue 1): the compressed update plane,
-server optimizers, fault-mode arrival masks, the client-sharded scan
-and the FedSGD step; asking for any of them raises.
+Not ported yet (ROADMAP.md Queue 1): fault-mode arrival masks, the
+client-sharded scan, the LM batch gather and the FedSGD step; asking
+for arrival masks raises.
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ from typing import Callable
 import torch
 
 from repro_torch.fl import device_data
+from repro_torch.fl.compression import (CompressionSpec, aggregate_compressed,
+                                        bytes_per_client)
 from repro_torch.kernels import ops as kops
+from repro_torch.optim import apply_updates
 
 
 def flatten_stacked(stacked: dict[str, torch.Tensor]):
@@ -70,26 +75,34 @@ def _make_client_update(loss_fn: Callable, local_lr: float, local_steps: int):
     return client_update
 
 
-def aggregate_and_quality(deltas, w, aggregate: Callable):
+def aggregate_and_quality(deltas, w, spec: CompressionSpec, kernels=kops):
     """Weighted aggregate Δ_t + per-client q_t = cos(Δ_t^(k), Δ_t) from
-    one fused pass over the flattened deltas."""
+    one fused pass over the flattened deltas, or, when ``spec`` is
+    active, from their encoded payloads (q on the decoded deltas).
+    Returns ``(agg, q, per-client wire bytes or None)``."""
     flat, unflatten = flatten_stacked(deltas)
-    agg_flat, dots, sq, asq = aggregate(flat, w)
+    if spec.active:
+        agg_flat, dots, sq, asq = aggregate_compressed(flat, w, spec,
+                                                       kernels=kernels)
+        per_client = bytes_per_client(spec, flat.shape[1],
+                                      flat.element_size())
+    else:
+        agg_flat, dots, sq, asq = kernels.fedavg_agg_quality(flat, w)
+        per_client = None
     q = dots / torch.clamp_min(torch.sqrt(sq) * torch.sqrt(asq), 1e-12)
-    return unflatten(agg_flat), q
+    return unflatten(agg_flat), q, per_client
 
 
 def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
                         local_steps: int = 1, batch_size: int = 16,
                         server_lr: float = 1.0, dropout_rate: float = 0.0,
-                        compression=None, server_opt=None,
-                        aggregate: Callable = kops.fedavg_agg_quality):
+                        compression=None, server_opt=None, kernels=kops):
     """Chunked multi-round function: S rounds per call.
 
-    Returns ``chunk_fn(params, data, schedule, base_key)`` where
+    Returns ``chunk_fn(carry, data, schedule, base_key)`` where
 
-    - ``params`` is the flat parameter dict (not modified; a new dict
-      comes back),
+    - ``carry`` is the flat parameter dict, or ``(params, opt_state)``
+      with a ``server_opt`` (neither is modified; new ones come back),
     - ``data`` is a :class:`repro_torch.fl.device_data.DeviceDataset`,
     - ``schedule`` is a dict of stacked per-round tensors from stage 2:
       ``rows (S, K)`` int64 positions into the dataset pools, ``weights
@@ -99,27 +112,36 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
     - ``base_key`` is a :mod:`repro_torch.random` key that seeds batch
       sampling + dropout via per-(round, slot) key folds.
 
-    Outputs stack across the chunk: ``(params', {"masks": (S,K),
+    Outputs stack across the chunk: ``(carry', {"masks": (S,K),
     "q_values": (S,K), "client_losses": (S,K), "mean_loss": (S,)})``.
 
-    ``aggregate`` is the fused pass (the kernel wrapper); a caller may
-    hand in its plain version to hold the two against each other.
+    - ``compression``: a spec string or
+      :class:`repro_torch.fl.compression.CompressionSpec`
+      (``TaskRequest.compression``). When active, the server aggregates
+      from the encoded deltas, q comes from the decoded ones, and the
+      metrics gain ``"bytes" (S,)``: arrived clients × per-client wire
+      bytes. ``None`` or ``"none"`` runs the uncompressed plane, with
+      bit-identical results.
+    - ``server_opt``: a :mod:`repro_torch.optim` Optimizer applied to the
+      pseudo-gradient Δ_t (FedAdam/FedYogi); the carry is then
+      ``(params, opt_state)`` and ``server_lr`` is ignored (fold it into
+      the optimizer's lr). ``None`` keeps the plain SGD server step.
+    - ``kernels``: where the aggregation and codec ops come from
+      (:mod:`repro_torch.kernels.ops`); a caller may hand in
+      ``kernels.ops.PLAIN`` to hold the kernels against their plain
+      versions on one device.
     """
-    if compression not in (None, "none"):
-        raise NotImplementedError("the compressed update plane is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 7")
-    if server_opt is not None:
-        raise NotImplementedError("server optimizers are not ported yet: "
-                                  "ROADMAP.md Queue 1 item 3")
+    spec = CompressionSpec.parse(compression)
     client_update = torch.func.vmap(
         _make_client_update(loss_fn, local_lr, local_steps),
         in_dims=(None, 0))
 
     @torch.no_grad()
-    def chunk_fn(params, data, schedule, base_key):
+    def chunk_fn(carry, data, schedule, base_key):
         if "arrival" in schedule:
             raise NotImplementedError("fault-mode arrival masks are not "
                                       "ported yet: ROADMAP.md Queue 1 item 5")
+        params, opt_state = (carry, None) if server_opt is None else carry
         S, K = schedule["rows"].shape
         mask_u, pos_u = device_data.sample_positions(
             base_key, schedule["round_ids"], K, local_steps, batch_size)
@@ -134,13 +156,24 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
             deltas, losses = client_update(params, batch)
             w = schedule["weights"][t] * mask
             w = w / torch.clamp_min(w.sum(), 1e-9)
-            agg, q = aggregate_and_quality(deltas, w, aggregate)
-            params = {n: (p - server_lr * agg[n]).to(p.dtype)
-                      for n, p in params.items()}
-            infos.append({"masks": mask, "q_values": q * mask,
-                          "client_losses": losses,
-                          "mean_loss": (losses * w).sum()})
-        return params, {k: torch.stack([i[k] for i in infos])
-                        for k in infos[0]}
+            agg, q, per_client = aggregate_and_quality(deltas, w, spec,
+                                                       kernels)
+            if server_opt is None:
+                params = {n: (p - server_lr * agg[n]).to(p.dtype)
+                          for n, p in params.items()}
+            else:
+                # Δ_t is the server pseudo-gradient (FedOpt): the
+                # optimizer's update replaces −server_lr·Δ_t
+                upd, opt_state = server_opt.update(agg, opt_state, params)
+                params = apply_updates(params, upd)
+            info = {"masks": mask, "q_values": q * mask,
+                    "client_losses": losses,
+                    "mean_loss": (losses * w).sum()}
+            if per_client is not None:
+                info["bytes"] = mask.sum() * float(per_client)
+            infos.append(info)
+        carry = params if server_opt is None else (params, opt_state)
+        return carry, {k: torch.stack([i[k] for i in infos])
+                       for k in infos[0]}
 
     return chunk_fn

@@ -7,7 +7,9 @@ paper's Figs. 5/6 experiments.
 dataset is staged on the device once (fl.device_data.DeviceDataset) and
 ``run_rounds`` drives S rounds per call through the chunk function
 (fl.round.make_fl_rounds_scan) with on-device batch gather, dropout
-masks, and the fused aggregation + quality kernel. It is an
+masks, and the fused aggregation + quality kernel, optionally from
+compressed client updates (``compression``) and with a FedAdam/FedYogi
+server step (``server_opt``). It is an
 ``AsyncTrainer``: ``dispatch_rounds`` enqueues the chunk's work on the
 device and returns tensors the host has not waited for, ``collect``
 blocks.
@@ -21,8 +23,8 @@ Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without CUDA they raise. Pass ``device="cpu"`` to run on the CPU.
 
 Not ported yet (ROADMAP.md Queue 1): the host-loop trainer
-``FLClassificationSim``, fault plans, compression, server optimizers,
-the mesh-sharded scan, device placement and trainer checkpoints.
+``FLClassificationSim``, fault plans, the mesh-sharded scan, device
+placement and trainer checkpoints.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import optim
 from repro_torch import random as trandom
 from repro_torch.core import (ClientPoolState, FLServiceProvider, TaskRequest,
                               lifecycle)
@@ -137,11 +140,20 @@ class DeviceFLSim(_EvalCache):
     ends exactly at the eval round — accuracy is always measured with
     that round's params.
 
+    ``compression`` is the ``TaskRequest`` spec string
+    (fl.compression); ``server_opt`` names a :mod:`repro_torch.optim`
+    server optimizer (``"fedadam"``, ``"fedyogi"``) applied to the
+    pseudo-gradient with lr = ``sim.server_lr``; its state
+    (``opt_state``) lives on the trainer's device and rides every chunk.
+    Both default off, and then the rounds are those of the uncompressed
+    plane.
+
     ``device=None`` runs on ``cuda`` and raises without it. Parameters
     are drawn from ``torch.Generator().manual_seed(sim.seed)``; to start
     from the reference's parameters, assign
     ``cnn.params_from_jax(...)`` (moved to the trainer's ``device``) to
-    ``params``.
+    ``params`` before the first round (the optimizer state is zeros of
+    the same shapes, so it need not be rebuilt).
     """
 
     # estimated fixed cost of one extra call, in units of one padded
@@ -159,6 +171,9 @@ class DeviceFLSim(_EvalCache):
             raise NotImplementedError("fault plans are not ported yet: "
                                       "ROADMAP.md Queue 1 item 5")
         if mesh is not None:
+            if compression is not None or server_opt is not None:
+                raise ValueError("mesh-sharded DeviceFLSim supports the "
+                                 "uncompressed plain-SGD plane only")
             raise NotImplementedError("the mesh-sharded round scan is not "
                                       "ported yet: ROADMAP.md Queue 1 item 8")
         self.device = resolve_device(device)
@@ -167,13 +182,17 @@ class DeviceFLSim(_EvalCache):
         self.base_key = trandom.prng_key(sim.seed, self.device)
         self.params = cnn.init_params(
             model_cfg, torch.Generator().manual_seed(sim.seed), self.device)
+        self._server_opt = None if server_opt is None \
+            else optim.make(server_opt, sim.server_lr)
+        self.opt_state = None if self._server_opt is None \
+            else self._server_opt.init(self.params)
         self.data = device_data.DeviceDataset.stage(data, parts, self.device)
         self.chunk_fn = make_fl_rounds_scan(
             lambda p, b: cnn.loss_fn(model_cfg, p, b),
             local_lr=sim.local_lr, local_steps=sim.local_steps,
             batch_size=sim.batch_size, server_lr=sim.server_lr,
             dropout_rate=sim.dropout_rate, compression=compression,
-            server_opt=server_opt)
+            server_opt=self._server_opt)
         self._init_eval(model_cfg, test, sim)
 
     def _k_pad(self, k: int) -> int:
@@ -252,12 +271,15 @@ class DeviceFLSim(_EvalCache):
             masks = info["masks"].cpu().numpy()
             qs = info["q_values"].cpu().numpy()
             losses = info["mean_loss"].cpu().numpy()
+            wire = info["bytes"].cpu().numpy() if "bytes" in info else None
             for t, subset in enumerate(subsets):
                 k = len(subset)
                 # only a segment's final round can be an eval round (the
                 # split above guarantees it), so eval_acc is unambiguous
                 metrics = self._record(start_round + t, losses[t],
                                        accuracy=eval_acc)
+                if wire is not None:
+                    metrics["bytes"] = float(wire[t])
                 out.append((masks[t, :k] > 0, qs[t, :k], metrics))
         return out
 
@@ -293,8 +315,13 @@ class DeviceFLSim(_EvalCache):
                     "active": torch.as_tensor(active, device=dev),
                     "round_ids": torch.arange(start_round, start_round + S,
                                               dtype=torch.int64, device=dev)}
-        self.params, info = self.chunk_fn(self.params, self.data, schedule,
-                                          self.base_key)
+        if self._server_opt is None:
+            self.params, info = self.chunk_fn(self.params, self.data,
+                                              schedule, self.base_key)
+        else:
+            (self.params, self.opt_state), info = self.chunk_fn(
+                (self.params, self.opt_state), self.data, schedule,
+                self.base_key)
         eval_acc = None
         if (start_round + S - 1) % self.sim.eval_every == 0:
             eval_acc = self._enqueue_eval(self.params)
@@ -323,6 +350,11 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
     stages the dataset on the device and runs ``round_chunk`` rounds per
     call through the chunk function; the host-loop plane (``"host"``) is
     not ported yet and raises.
+
+    ``compression`` (a spec of fl.compression, also recorded on the
+    ``TaskRequest``) and ``server_opt`` (``"fedadam"``/``"fedyogi"``)
+    turn on the compressed update plane and the FedOpt server step; the
+    round metrics then carry ``"bytes"``.
 
     ``selection_policy`` / ``scheduling_policy`` pick registered
     ``core.policy`` strategies; unset (``None``), the legacy

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
 Every ``csrc/*.cu`` (CUDA C++ for ``sm_90a``, each with a plain C
-interface) is compiled at first use by a single ``nvcc`` call into one
-shared library under the checkout's git-ignored ``build/kernels/``,
-named by a hash of all the sources, and loaded with ``ctypes``. Nothing
-is built or loaded at import, so the CPU tests import the bindings
-freely. Each binding module (``fedavg_agg``, ``segmented_topk``,
-``mkp_utility``) sets the argument types of its own symbols.
+interface) is compiled at first use, one ``nvcc`` process per source,
+all started together, and the objects are linked by one more ``nvcc``
+call into one shared library under the checkout's git-ignored
+``build/kernels/``, named by a hash of all the sources, and loaded with
+``ctypes``. Nothing is built or loaded at import, so the CPU tests
+import the bindings freely. Each binding module (``fedavg_agg``,
+``segmented_topk``, ``mkp_utility``, ``compression``) sets the argument
+types of its own symbols.
 """
 from __future__ import annotations
 
@@ -49,27 +51,44 @@ def _lib_path() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Compile every kernel source (once per version of the sources) in
-    one ``nvcc`` call and load the library.
+    """Compile every kernel source (once per version of the sources),
+    each in its own ``nvcc`` process, link them and load the library.
 
     ``nvcc -Xptxas -v`` output (registers, shared memory, spills of
     every entry) is kept beside the library as ``<name>.log``.
-    Concurrent builds each write a temporary file and rename it into
-    place.
+    Concurrent builds each write temporary files and rename the library
+    into place.
     """
     lib_path = _lib_path()
     if not lib_path.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+        objs, procs = [], []
+        for src in sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log) for src, p, log
+                  in zip(sources(), procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp = lib_path.with_name(f"{tag}.so.tmp")
+        proc = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        for obj in objs:
+            obj.unlink()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        lib_path.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, lib_path)
     return ctypes.CDLL(str(lib_path))
 

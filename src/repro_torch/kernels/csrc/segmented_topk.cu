@@ -1,25 +1,35 @@
-// Segmented top-k for Hopper (sm_90a): the per-shard frontier of the
-// fleet-scale stage 1 (the hierarchical greedy knapsack).
+// Per-row top-k for Hopper (sm_90a), in two keyings:
 //
-// Replaces the TPU kernel kernels/segmented_topk.py::segmented_topk of the
-// JAX package. For x (S, C) f32 it gives, per row, the k largest values
-// (S, k) f32 and their lanes (S, k) int32, in descending order, ties to
-// the lowest lane; -0.0 ties with +0.0 (the reference compares with ==)
-// and NaN orders above +inf (as torch.sort does). Rows padded with -inf
-// yield -inf slots once their finite entries run out.
+// - segmented_topk_f32: the per-shard frontier of the fleet-scale stage 1
+//   (the hierarchical greedy knapsack), keyed on x. Replaces the TPU
+//   kernel kernels/segmented_topk.py::segmented_topk of the JAX package.
+//   For x (S, C) f32 it gives, per row, the k largest values (S, k) f32
+//   and their lanes (S, k) int32, in descending order, ties to the lowest
+//   lane; -0.0 ties with +0.0 (the reference compares with ==) and NaN
+//   orders above +inf (as torch.sort does). Rows padded with -inf yield
+//   -inf slots once their finite entries run out.
+// - topk_sparsify_f32: the magnitude top-k codec of the compressed update
+//   plane, keyed on |x| (fabsf, so -0.0 ties with +0.0 as jnp.abs has
+//   it). Replaces kernels/compression.py::topk_sparsify. For the client
+//   deltas x (K, P) it gives the k indices of largest |x| per row,
+//   descending, ties to the lowest index, and the signed x at each: the
+//   emit gathers x at the kept lane, so it serves both keyings as it is.
 //
-// Bound: bytes and launches. The function must read S*C*4 bytes and
+// Bound: bytes and launches. segmented_topk must read S*C*4 bytes and
 // write S*k*8; at the fleet shape (S = 8, C = 131,072, k = 4,096) that is
 // 4.46 MB, 1.3 us at 3.35 TB/s, so the passes over the row and the
-// launches, not the bytes, set its time.
+// launches, not the bytes, set its time. topk_sparsify at the compressed
+// plane's shape (K = 13, P = 1,070,794, k = 53,540 at F = 0.05) reads
+// 55.7 MB and writes 5.6 MB, 18.3 us; its sort is 65,536 pairs a row,
+// mostly global passes, and select and compact keep 13 of 132 SMs busy.
 //
 // Design. The TPU kernel did k max-extract passes over a row held in
 // VMEM; at k = 4,096 (and up to k = C when the frontier escalates) that
 // does not carry over. Here, per row:
-//   1. select (one block per row): map each f32 to an order-preserving
-//      uint32 key and find the key T of the k-th largest element with
-//      four 8-bit histogram passes (shared-memory integer counts, one add
-//      per distinct digit in a warp);
+//   1. select (one block per row): map each f32 (or its magnitude) to an
+//      order-preserving uint32 key and find the key T of the k-th largest
+//      element with four 8-bit histogram passes (shared-memory integer
+//      counts, one add per distinct digit in a warp);
 //   2. compact (one block per row): walk the row in lane order and keep
 //      every key above T plus the lowest-lane keys equal to T, up to k,
 //      by block-wide ballot scans. Each survivor becomes the 64-bit pair
@@ -48,8 +58,17 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// The two keyings the select and compact kernels are templated on.
+struct ValueKey {
+  __device__ __forceinline__ static uint32_t of(float f) { return order_key(f); }
+};
+struct MagnitudeKey {
+  __device__ __forceinline__ static uint32_t of(float f) { return order_key(fabsf(f)); }
+};
+
 // Per row: the key T of the k-th largest element, and how many elements
 // equal to T the top k takes (the rest of the k lie above T).
+template <typename Key>
 __global__ void __launch_bounds__(kRowThreads)
 topk_select(const float* __restrict__ x, int C, int k, uint32_t* __restrict__ thresh,
             int* __restrict__ need_eq) {
@@ -67,7 +86,7 @@ topk_select(const float* __restrict__ x, int C, int k, uint32_t* __restrict__ th
       const int c = c0 + threadIdx.x;
       int digit = -1;
       if (c < C) {
-        const uint32_t key = order_key(row[c]);
+        const uint32_t key = Key::of(row[c]);
         if ((key & mask) == prefix) digit = (int)((key >> shift) & 0xFFu);
       }
       const unsigned peers = __match_any_sync(0xFFFFFFFFu, digit);
@@ -100,6 +119,7 @@ topk_select(const float* __restrict__ x, int C, int k, uint32_t* __restrict__ th
 
 // Per row: the k survivors as (~key << 32 | lane) pairs in lane order,
 // then kPad up to kp.
+template <typename Key>
 __global__ void __launch_bounds__(kRowThreads)
 topk_compact(const float* __restrict__ x, int C, int k, int kp,
              const uint32_t* __restrict__ thresh, const int* __restrict__ need_eq,
@@ -118,7 +138,7 @@ topk_compact(const float* __restrict__ x, int C, int k, int kp,
     uint32_t key = 0u;
     bool gt = false, eq = false;
     if (c < C) {
-      key = order_key(row[c]);
+      key = Key::of(row[c]);
       gt = key > T;
       eq = key == T;
     }
@@ -213,15 +233,11 @@ topk_emit(const float* __restrict__ x, int C, int k, int kp,
 
 unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
-}  // namespace
-
-// C interface, bound with ctypes. x (S, C) f32; vals (S, k) f32; lanes
-// (S, k) int32; scratch: buf (S, kp) uint64 with kp the least power of two
-// >= k, thresh (S,) uint32, need_eq (S,) int32. Returns 0 or the CUDA
-// error code of the first failed launch.
-extern "C" int segmented_topk_f32(const void* x, void* vals, void* lanes, void* buf,
-                                  void* thresh, void* need_eq, int S, int C, int k, int kp,
-                                  void* stream) {
+// Every launch of one top-k over x (S, C) keyed by Key; returns 0 or the
+// CUDA error code of the first failed launch.
+template <typename Key>
+int run_topk(const void* x, void* vals, void* lanes, void* buf, void* thresh, void* need_eq,
+             int S, int C, int k, int kp, void* stream) {
   if (S < 1 || C < 1 || C > (1 << 30) || k < 1 || k > C || kp < k || (kp & (kp - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -230,9 +246,9 @@ extern "C" int segmented_topk_f32(const void* x, void* vals, void* lanes, void* 
   uint32_t* th = static_cast<uint32_t*>(thresh);
   int* ne = static_cast<int*>(need_eq);
   cudaError_t err;
-  topk_select<<<S, kRowThreads, 0, st>>>(xx, C, k, th, ne);
+  topk_select<Key><<<S, kRowThreads, 0, st>>>(xx, C, k, th, ne);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  topk_compact<<<S, kRowThreads, 0, st>>>(xx, C, k, kp, th, ne, b);
+  topk_compact<Key><<<S, kRowThreads, 0, st>>>(xx, C, k, kp, th, ne, b);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int tile = kp < kTile ? kp : kTile;
   const unsigned tile_blocks = (unsigned)S * (unsigned)(kp / tile);
@@ -252,4 +268,24 @@ extern "C" int segmented_topk_f32(const void* x, void* vals, void* lanes, void* 
   topk_emit<<<blocks_for(total, kPairThreads), kPairThreads, 0, st>>>(
       xx, C, k, kp, b, static_cast<float*>(vals), static_cast<int*>(lanes), total);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C interface, bound with ctypes. x (S, C) f32; vals (S, k) f32; lanes
+// (S, k) int32; scratch: buf (S, kp) uint64 with kp the least power of two
+// >= k, thresh (S,) uint32, need_eq (S,) int32. Returns 0 or the CUDA
+// error code of the first failed launch.
+extern "C" int segmented_topk_f32(const void* x, void* vals, void* lanes, void* buf,
+                                  void* thresh, void* need_eq, int S, int C, int k, int kp,
+                                  void* stream) {
+  return run_topk<ValueKey>(x, vals, lanes, buf, thresh, need_eq, S, C, k, kp, stream);
+}
+
+// The same, keyed on |x|: rows are the K client deltas, lanes the kept
+// indices, vals the signed values at them.
+extern "C" int topk_sparsify_f32(const void* x, void* vals, void* lanes, void* buf,
+                                 void* thresh, void* need_eq, int S, int C, int k, int kp,
+                                 void* stream) {
+  return run_topk<MagnitudeKey>(x, vals, lanes, buf, thresh, need_eq, S, C, k, kp, stream);
 }

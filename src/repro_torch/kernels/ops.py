@@ -18,17 +18,32 @@ through the kernel; set an entry to 0 to start a count.
 - ``mkp_utility`` replaces ``src/repro/kernels/mkp_utility.py`` (line
   42): the Toyoda update of stage 2's device MKP greedy, launched once
   per greedy iteration.
+- ``topk_sparsify``, ``quantize_i8``, ``dequantize_i8`` and
+  ``fedavg_agg_quality_i8`` replace ``src/repro/kernels/compression.py``
+  (lines 81, 117, 145, 197): the codecs of the compressed update plane
+  (fl.compression), launched once per round by the codec that uses
+  them.
+
+``PLAIN`` holds the plain versions of the ops that fl.round and
+fl.compression call, under the same names: passed as their
+``kernels`` argument, it runs a path on the card through the plain
+versions, to hold it against the kernels.
 """
 from __future__ import annotations
 
+import types
+
 import torch
 
+from . import compression as _compression
 from . import fedavg_agg as _fedavg_agg
 from . import mkp_utility as _mkp_utility
 from . import ref
 from . import segmented_topk as _segmented_topk
 
-LAUNCHES = {"fedavg_agg_quality": 0, "segmented_topk": 0, "mkp_utility": 0}
+LAUNCHES = {"fedavg_agg_quality": 0, "segmented_topk": 0, "mkp_utility": 0,
+            "topk_sparsify": 0, "quantize_i8": 0, "dequantize_i8": 0,
+            "fedavg_agg_quality_i8": 0}
 
 
 def fedavg_agg_quality(updates: torch.Tensor, weights: torch.Tensor):
@@ -65,4 +80,63 @@ def mkp_utility(values: torch.Tensor, weights: torch.Tensor,
     return out
 
 
-__all__ = ["LAUNCHES", "fedavg_agg_quality", "mkp_utility", "segmented_topk"]
+def topk_sparsify(x: torch.Tensor, k: int):
+    """Magnitude top-k of each row of x (K, P) (a bf16 input is cast to
+    f32 first). Returns ``(values (K, k) f32, indices (K, k) int32)``,
+    descending |x|, ties to the lowest index, signed values; see
+    :func:`repro_torch.kernels.ref.topk_sparsify_ref`."""
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        return ref.topk_sparsify_ref(x, k)
+    out = _compression.topk_sparsify(x.contiguous(), k)
+    LAUNCHES["topk_sparsify"] += 1
+    return out
+
+
+def quantize_i8(x: torch.Tensor, chunk: int = 256):
+    """Per-chunk symmetric int8 of x (K, P) (cast to f32 first). Returns
+    ``(values (K, P) int8, scales (K, ceil(P/chunk)) f32)``; see
+    :func:`repro_torch.kernels.ref.quantize_i8_ref`."""
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        return ref.quantize_i8_ref(x, int(chunk))
+    out = _compression.quantize_i8(x.contiguous(), chunk)
+    LAUNCHES["quantize_i8"] += 1
+    return out
+
+
+def dequantize_i8(values: torch.Tensor, scales: torch.Tensor,
+                  chunk: int = 256) -> torch.Tensor:
+    """Inverse of :func:`quantize_i8`: (K, P) int8 + (K, nc) f32 -> (K, P)
+    f32; see :func:`repro_torch.kernels.ref.dequantize_i8_ref`."""
+    if values.device.type == "cpu":
+        return ref.dequantize_i8_ref(values, scales, int(chunk))
+    out = _compression.dequantize_i8(values, scales, chunk)
+    LAUNCHES["dequantize_i8"] += 1
+    return out
+
+
+def fedavg_agg_quality_i8(values: torch.Tensor, scales: torch.Tensor,
+                          weights: torch.Tensor, chunk: int = 256):
+    """:func:`fedavg_agg_quality` straight from int8 payloads (dequantized
+    in the kernel's registers). Returns ``(agg (P,) f32, dots (K,),
+    sq (K,), asq ())``; see
+    :func:`repro_torch.kernels.ref.fedavg_agg_quality_i8_ref`."""
+    if values.device.type == "cpu":
+        return ref.fedavg_agg_quality_i8_ref(values, scales, weights,
+                                             int(chunk))
+    out = _compression.fedavg_agg_quality_i8(values, scales, weights, chunk)
+    LAUNCHES["fedavg_agg_quality_i8"] += 1
+    return out
+
+
+PLAIN = types.SimpleNamespace(
+    fedavg_agg_quality=ref.fedavg_agg_quality_ref,
+    topk_sparsify=ref.topk_sparsify_ref,
+    quantize_i8=ref.quantize_i8_ref,
+    dequantize_i8=ref.dequantize_i8_ref,
+    fedavg_agg_quality_i8=ref.fedavg_agg_quality_i8_ref)
+
+__all__ = ["LAUNCHES", "PLAIN", "dequantize_i8", "fedavg_agg_quality",
+           "fedavg_agg_quality_i8", "mkp_utility", "quantize_i8",
+           "segmented_topk", "topk_sparsify"]

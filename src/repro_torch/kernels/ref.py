@@ -42,6 +42,67 @@ def segmented_topk_ref(x: torch.Tensor, k: int):
     return torch.gather(xf, -1, lanes), lanes.to(torch.int32)
 
 
+def topk_sparsify_ref(x: torch.Tensor, k: int):
+    """Magnitude top-k: x (K, P) -> ``(values (K, k) f32, indices (K, k)
+    int32)``, ordered by descending |x|, ties to the lowest index (a
+    stable descending sort of |x|, which is ``lax.top_k(|x|, k)``'s
+    selection); the values are the signed originals. ``k`` is clipped to
+    P. ``abs`` maps -0.0 to +0.0, so the two tie."""
+    k = int(min(k, x.shape[-1]))
+    xf = x.to(torch.float32)
+    idx = torch.sort(xf.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return torch.gather(xf, -1, idx), idx.to(torch.int32)
+
+
+# 1/127 rounded once to f32: the JAX package's jitted oracle and Pallas
+# kernel both scale by it (XLA turns the constant division amax / 127
+# into amax * fl(1/127)); the eager oracle divides and may land 1 ulp away.
+INV_127 = 1.0 / 127.0
+
+
+def _chunked(x: torch.Tensor, chunk: int):
+    """(K, P) -> (K, nc, chunk) with a zero-padded ragged tail."""
+    K, P = x.shape
+    nc = -(-P // chunk)
+    return torch.nn.functional.pad(x, (0, nc * chunk - P)).reshape(
+        K, nc, chunk), nc
+
+
+def quantize_i8_ref(x: torch.Tensor, chunk: int = 256):
+    """Per-chunk symmetric int8: x (K, P) -> ``(values (K, P) int8,
+    scales (K, ceil(P/chunk)) f32)`` with scale = amax(|chunk|) · fl(1/127)
+    (0 for an all-zero chunk) and values = round_half_even(x / scale), a
+    true division, clipped to ±127 (0 where the scale is 0). The ragged
+    tail is zero-padded."""
+    K, P = x.shape
+    xc, _ = _chunked(x.to(torch.float32), chunk)
+    # a Python scalar is rounded to the tensor's f32 before the multiply
+    scales = xc.abs().amax(dim=2) * INV_127                    # (K, nc)
+    pos = (scales > 0.0)[:, :, None]
+    safe = torch.where(pos, scales[:, :, None], torch.ones_like(xc[:, :, :1]))
+    q = torch.where(pos, torch.round(xc / safe), torch.zeros_like(xc))
+    vals = q.clamp(-127.0, 127.0).to(torch.int8)
+    return vals.reshape(K, -1)[:, :P], scales
+
+
+def dequantize_i8_ref(values: torch.Tensor, scales: torch.Tensor,
+                      chunk: int = 256):
+    """Inverse: (K, P) int8 + (K, nc) f32 scales -> (K, P) f32, each
+    value times its chunk's scale (one rounding)."""
+    K, P = values.shape
+    vc, _ = _chunked(values.to(torch.float32), chunk)
+    return (vc * scales[:, :, None]).reshape(K, -1)[:, :P]
+
+
+def fedavg_agg_quality_i8_ref(values: torch.Tensor, scales: torch.Tensor,
+                              weights: torch.Tensor, chunk: int = 256):
+    """Compressed fused aggregation: dequantize, then
+    :func:`fedavg_agg_quality_ref` (f32 throughout); agg is f32."""
+    return fedavg_agg_quality_ref(dequantize_i8_ref(values, scales, chunk),
+                                  weights)
+
+
 def mkp_utility_ref(values: torch.Tensor, weights: torch.Tensor,
                     residual: torch.Tensor, selectable: torch.Tensor,
                     eps: float = 1e-12):

@@ -10,16 +10,35 @@ may differ by one bf16 ulp where the f32 sums straddle a rounding
 boundary. ``segmented_topk`` and ``mkp_utility`` are held to their
 plain versions exactly: the top-k is a selection (values and lanes of
 every finite entry equal), and the utility kernel rounds every product,
-sum and division as the plain version does.
+sum and division as the plain version does. So are the codec kernels
+``topk_sparsify`` (values and indices), ``quantize_i8`` (values and
+scales; one correctly rounded f32 operation a step) and
+``dequantize_i8``; ``fedavg_agg_quality_i8`` is held as
+``fedavg_agg_quality`` in f32. A compressed round chunk through the
+kernels against the same chunk through ``kernels.ops.PLAIN``: masks and
+bytes exact; the first round's payloads are equal and only the f32 sums
+of the aggregate differ, so a later round may move an int8 value by a
+step or swap a near-tie at the top-k threshold: at most 0.1 % of the
+parameters beyond rtol 1e-4 / atol 1e-5, none beyond half the chunk's
+largest parameter change.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import optim
+from repro_torch import random as trandom
 from repro_torch.core import engine
 from repro_torch.core.pool import ClientPoolState
+from repro_torch.data.synthetic import make_classification_data
+from repro_torch.fl import device_data
+from repro_torch.fl.compression import CompressionSpec, bytes_per_client
+from repro_torch.fl.partition import partition_labels
+from repro_torch.fl.round import make_fl_rounds_scan
+from repro_torch.kernels import compression as kcomp
 from repro_torch.kernels import fedavg_agg, mkp_utility, ops, ref
 from repro_torch.kernels import segmented_topk
+from repro_torch.models import cnn
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +246,143 @@ def test_hierarchical_equals_flat_at_full_shards(cuda):
         assert stats["path"] == "frontier"
         np.testing.assert_array_equal(rows, frows)
         assert (ts, tc, nv) == (fts, ftc, fnv)
+
+
+# ---------------------------------------------------------------------------
+# the codec kernels of the compressed update plane
+# ---------------------------------------------------------------------------
+
+MAIN_P, MAIN_TOPK = 1_070_794, 53_540     # CIFAR_CNN; k at topk:0.05
+
+
+def codec_input(K, P, kind, cuda):
+    """Unit normals; ``ties``: halves in -1.5..1.5 with signed zeros;
+    ``zeros``: zero first halves, row 0 ending in +-amax."""
+    g = torch.Generator(device=cuda).manual_seed(K * 1009 + P)
+    if kind == "ties":
+        x = torch.randint(-3, 4, (K, P), generator=g, device=cuda) / 2.0
+        x[0, : min(P, 2)] = torch.tensor([-0.0, 0.0], device=cuda)[:P]
+        return x
+    x = torch.randn(K, P, generator=g, device=cuda)
+    if kind == "zeros":
+        x[:, : max(1, P // 2)] = 0.0
+        if P >= 4:
+            amax = x[0].abs().max()
+            x[0, -2], x[0, -1] = amax, -amax
+    return x
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("K,P,k", [(1, 7, 1), (1, 7, 7), (13, 4097, 1),
+                                   (13, 4097, 4097), (3, 100_003, 777),
+                                   (13, MAIN_P, MAIN_TOPK)])
+def test_topk_sparsify_matches_plain(cuda, K, P, k, kind):
+    x = codec_input(K, P, kind, cuda)
+    before = ops.LAUNCHES["topk_sparsify"]
+    got = ops.topk_sparsify(x, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_sparsify"] == before + 1
+    exp = ref.topk_sparsify_ref(x, k)
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("chunk", [100, 128, 256, 512])
+@pytest.mark.parametrize("K,P", [(1, 7), (13, 4097), (13, MAIN_TOPK),
+                                 (13, MAIN_P)])
+def test_int8_codec_kernels_match_plain(cuda, K, P, chunk, kind):
+    x = codec_input(K, P, kind, cuda)
+    before = dict(ops.LAUNCHES)
+    v, s = ops.quantize_i8(x, chunk)
+    ev, es = ref.quantize_i8_ref(x, chunk)
+    d = ops.dequantize_i8(v, s, chunk)
+    w = torch.softmax(torch.arange(K, dtype=torch.float32, device=cuda), 0)
+    agg = ops.fedavg_agg_quality_i8(v, s, w, chunk)
+    torch.cuda.synchronize()
+    for name in ("quantize_i8", "dequantize_i8", "fedavg_agg_quality_i8"):
+        assert ops.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(v, ev) and torch.equal(s, es)
+    assert torch.equal(d, ref.dequantize_i8_ref(ev, es, chunk))
+    eagg = ref.fedavg_agg_quality_i8_ref(ev, es, w, chunk)
+    torch.testing.assert_close(agg[0], eagg[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(agg[1:], eagg[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * P ** 0.5)
+    if kind == "zeros" and P >= 1024:
+        assert (s[:, 0] == 0).all()
+        assert int(v[0, -2]) == 127 and int(v[0, -1]) == -127
+
+
+def test_codec_kernels_repeat_and_refuse_bad_inputs(cuda):
+    x = codec_input(13, 100_003, "ties", cuda)
+    a, b = ops.topk_sparsify(x, 5000), ops.topk_sparsify(x, 5000)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    v, s = ops.quantize_i8(x)
+    w = torch.full((13,), 1 / 13, device=cuda)
+    for p, q in zip(ops.fedavg_agg_quality_i8(v, s, w),
+                    ops.fedavg_agg_quality_i8(v, s, w)):
+        assert torch.equal(p, q)
+    with pytest.raises(ValueError, match="float32"):
+        kcomp.quantize_i8(x.double())
+    with pytest.raises(ValueError, match="chunk"):
+        kcomp.quantize_i8(x, 0)
+    with pytest.raises(ValueError, match="scales"):
+        kcomp.dequantize_i8(v, s[:, 1:])
+    with pytest.raises(ValueError, match="K <="):
+        kcomp.fedavg_agg_quality_i8(
+            torch.zeros(fedavg_agg.MAX_K + 1, 8, dtype=torch.int8,
+                        device=cuda),
+            torch.zeros(fedavg_agg.MAX_K + 1, 1, device=cuda),
+            torch.ones(fedavg_agg.MAX_K + 1, device=cuda))
+    with pytest.raises(ValueError, match="k >= 1"):
+        kcomp.topk_sparsify(x, 0)
+
+
+@pytest.mark.parametrize("text", ["int8", "topk:0.05+int8"])
+def test_compressed_chunk_kernels_vs_plain(cuda, text):
+    data = make_classification_data("mnist", 600, seed=2)
+    parts = partition_labels(data.labels, 10, "type2", 10, seed=2)
+    dd = device_data.DeviceDataset.stage(data, parts, cuda)
+    S, K = 3, 6
+    rows = torch.as_tensor(np.stack([np.random.default_rng(t).choice(
+        10, K, replace=False) for t in range(S)]), device=cuda)
+    sched = {"rows": rows, "weights": torch.full((S, K), 1 / K, device=cuda),
+             "active": torch.ones(S, K, device=cuda),
+             "round_ids": torch.arange(S, device=cuda)}
+    params = cnn.init_params(cnn.MNIST_CNN, torch.Generator().manual_seed(2),
+                             cuda)
+    opt = optim.fedadam(0.01)
+    kw = dict(local_lr=0.1, local_steps=2, batch_size=8, dropout_rate=0.2,
+              compression=text, server_opt=opt)
+    loss = lambda p, b: cnn.loss_fn(cnn.MNIST_CNN, p, b)
+    carry = (params, opt.init(params))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = dict(ops.LAUNCHES)
+        (pk, _), ik = make_fl_rounds_scan(loss, **kw)(
+            carry, dd, sched, trandom.prng_key(2, cuda))
+        counts = {n: ops.LAUNCHES[n] - before[n] for n in before}
+        (pp, _), ip = make_fl_rounds_scan(loss, kernels=ops.PLAIN, **kw)(
+            carry, dd, sched, trandom.prng_key(2, cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    want = ({"quantize_i8", "fedavg_agg_quality_i8"} if text == "int8" else
+            {"topk_sparsify", "quantize_i8", "dequantize_i8",
+             "fedavg_agg_quality"})
+    assert {n for n, c in counts.items() if c} == want
+    assert all(counts[n] == S for n in want)
+    assert torch.equal(ik["masks"], ip["masks"])
+    p = sum(v.numel() for v in params.values())
+    per_client = bytes_per_client(CompressionSpec.parse(text), p)
+    assert torch.equal(ik["bytes"], ip["bytes"])
+    assert torch.equal(ik["bytes"], ik["masks"].sum(1) * per_client)
+    change = max(float((pp[n] - params[n]).abs().max()) for n in params)
+    off = 0
+    for n in params:
+        err = (pk[n] - pp[n]).abs()
+        off += int((err > 1e-5 + 1e-4 * pp[n].abs()).sum())
+        assert float(err.max()) <= 0.5 * change
+    assert off <= 0.001 * p
+    torch.testing.assert_close(ik["q_values"], ip["q_values"], rtol=0,
+                               atol=1e-4)

@@ -120,7 +120,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_build_compiles_every_source_into_one_library():
     names = [p.name for p in build.sources()]
     assert names == sorted(["fedavg_agg_quality.cu", "mkp_utility.cu",
-                            "segmented_topk.cu"])
+                            "quantize_i8.cu", "segmented_topk.cu"])
     assert build._lib_path().parent == build.BUILD_DIR
 
 

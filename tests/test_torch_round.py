@@ -21,12 +21,13 @@ from repro.fl.partition import partition_labels as ref_partition
 from repro.fl.round import flatten_stacked as ref_flatten
 from repro.fl.round import make_fl_rounds_scan as ref_scan
 from repro.models import cnn as jcnn
+from repro_torch import optim
 from repro_torch import random as trandom
 from repro_torch.data.synthetic import make_classification_data
 from repro_torch.fl import device_data
 from repro_torch.fl.partition import partition_labels
 from repro_torch.fl.round import flatten_stacked, make_fl_rounds_scan
-from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ops as kops
 from repro_torch.models import cnn
 
 SEED = 4
@@ -88,8 +89,8 @@ def chunk_results():
     out, info = make_fl_rounds_scan(loss, **kw)(params0, dd, sched,
                                                 trandom.prng_key(SEED))
     plain_out, plain_info = make_fl_rounds_scan(
-        loss, aggregate=kref.fedavg_agg_quality_ref, **kw)(
-        params0, dd, sched, trandom.prng_key(SEED))
+        loss, kernels=kops.PLAIN, **kw)(params0, dd, sched,
+                                        trandom.prng_key(SEED))
     return (jax.tree_util.tree_map(np.asarray, jout),
             jax.tree_util.tree_map(np.asarray, jinfo), out, info, active,
             plain_out, plain_info)
@@ -118,8 +119,9 @@ def test_params_q_losses_match(chunk_results):
 
 
 def test_aggregate_seam_takes_plain_version(chunk_results):
-    """On the CPU the wrapper is the plain version, so both runs agree
-    bit for bit; on the card the same seam holds kernel against plain."""
+    """On the CPU the wrapper is the plain version, so a chunk run with
+    ``kernels=ops.PLAIN`` agrees bit for bit; on the card the same seam
+    holds kernel against plain."""
     _, _, out, info, _, plain_out, plain_info = chunk_results
     for k in out:
         assert torch.equal(out[k], plain_out[k])
@@ -128,11 +130,16 @@ def test_aggregate_seam_takes_plain_version(chunk_results):
 
 
 def test_unported_options_raise():
+    """Compression and server optimizers are ported; fault-mode arrival
+    masks still raise, naming their ROADMAP item, with or without them;
+    a bad codec spec is refused when the chunk function is built."""
     loss = lambda p, b: cnn.loss_fn(cnn.MNIST_CNN, p, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fl_rounds_scan(loss, compression="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fl_rounds_scan(loss, server_opt="fedadam")
-    fn = make_fl_rounds_scan(loss)
-    with pytest.raises(NotImplementedError, match="arrival"):
-        fn({}, None, {"rows": torch.zeros(1, 2), "arrival": None}, None)
+    sched = {"rows": torch.zeros(1, 2), "arrival": None}
+    for kw in ({}, {"compression": "int8"},
+               {"compression": "topk:0.05+int8",
+                "server_opt": optim.fedadam(0.01)}):
+        fn = make_fl_rounds_scan(loss, **kw)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            fn({}, None, sched, None)
+    with pytest.raises(ValueError, match="compression"):
+        make_fl_rounds_scan(loss, compression="gzip")

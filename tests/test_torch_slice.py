@@ -134,16 +134,31 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_paths_raise():
+    """What this port still cuts raises, naming its ROADMAP item: the
+    host-loop plane, fault plans and arrival masks, the mesh, checkpoint
+    files. A mesh with compression or a server optimizer is refused as
+    the reference refuses it. Compression and server optimizers alone
+    build a trainer."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         simulation.run_fl_experiment("mnist", "type2", data_plane="host",
                                      device="cpu")
     data = make_classification_data("mnist", 40, seed=0)
     parts = partition_labels(data.labels, 4, "type2", 10, seed=0)
-    for kw in ({"fault_plan": object()}, {"mesh": object()},
-               {"compression": "int8"}, {"server_opt": "fedadam"}):
+    for kw in ({"fault_plan": object()}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
                                    device="cpu", **kw)
+    for kw in ({"compression": "int8"}, {"server_opt": "fedadam"}):
+        with pytest.raises(ValueError, match="mesh"):
+            simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
+                                   device="cpu", mesh=object(), **kw)
+    sim = simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
+                                 device="cpu", compression="topk:0.1+int8",
+                                 server_opt="fedyogi")
+    assert sorted(sim.opt_state) == ["count", "m", "v"]
+    with pytest.raises(NotImplementedError, match="item 5"):
+        sim.dispatch_rounds(0, [[0, 1]], [np.array([0.5, 0.5])],
+                            arrivals=[np.ones(2)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lifecycle.save_state("unused", None)
 
@@ -169,6 +184,8 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.core.device_pool, repro_torch.core.engine\n"
         "import repro_torch.kernels.build, repro_torch.kernels.segmented_topk\n"
         "import repro_torch.kernels.mkp_utility\n"
+        "import repro_torch.kernels.compression, repro_torch.fl.compression\n"
+        "import repro_torch.optim, repro_torch.optim.schedules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
