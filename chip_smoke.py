@@ -41,10 +41,24 @@ plain PyTorch version. Phases, one line each:
     FedAdam server, 16 rounds each; every codec kernel launches once a
     round where its codec uses it and never elsewhere, and each round's
     ``bytes`` is arrived clients x the codec's wire size;
-13. ``compression="none"`` gives the uncompressed chunk bit for bit.
+13. ``compression="none"`` gives the uncompressed chunk bit for bit;
+14. the serve path's kernels against their plain versions on the card,
+    f32 and bf16: ``rmsnorm``, ``swiglu`` and ``flash_attention`` at the
+    serve shapes and the reference's test sweeps (MHA, GQA, MQA, windows
+    8 and 16, Sq=1 against Sk, non-causal, ragged S; ragged M, D, F);
+15. the serve path at full width: SmolLM-360M, bf16, random weights from
+    a seed, 8 prompts of 1,024 tokens and 32 new tokens through
+    ``models.transformer`` ``prefill`` / ``grow_cache`` / ``decode_step``
+    with ``use_kernels=True``: launches exactly 32 / 1,024 / 2,080 of
+    flash_attention / swiglu / rmsnorm; prefill and 8 teacher-forced
+    decode steps against the same weights through ``kernels=ops.PLAIN``,
+    held to the bf16 path's own distance from f32;
+16. the entry point ``repro_torch.launch.serve.serve("smollm-360m")`` at
+    its default (reduced) size.
 
-Phases 5, 8, 9 and 12 set their kernels' launch counts to 0 just before
-and read them just after. Any failure raises and exits non-zero. The
+Phases 5, 8, 9, 12, 15 and 16 set their kernels' launch counts to 0
+just before and read them just after. Each phase line carries the
+seconds since the script started. Any failure raises and exits non-zero. The
 last two lines are the kernel records and ``{"ok": true, "device":
 {...}}``.
 """
@@ -64,9 +78,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores.
+# H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores and
+# the dense bf16 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 MAIN_K, MAIN_P = 13, 1_070_794      # subset_size + delta; CIFAR_CNN params
 # The fleet: the reference's 1M-client selection record
 # (BENCH_selection.json "fleet"[0]): 8 shards of 131,072, thresholds
@@ -89,6 +105,19 @@ TOPK_FRAC, CHUNK = 0.05, 256
 MAIN_TOPK = 53_540
 WIRE = {None: 4_283_176, "int8": 1_087_526, "topk:0.05+int8": 268_540}
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# The serve path at full width: SmolLM-360M (its published shape, bf16),
+# 8 prompts of 1,024 tokens, 32 new tokens; 8 teacher-forced decode steps
+# held against the plain versions.
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_TF = (
+    "smollm-360m", 8, 1024, 32, 8)
+SERVE_D, SERVE_F, SERVE_H, SERVE_G, SERVE_HD = 960, 2560, 15, 5, 64
+# Kernel against plain version, by dtype: (rtol, atol) with the reasons
+# in tests/test_torch_cuda.py.
+SERVE_TOL = {
+    "rmsnorm": {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -6, 1e-6)},
+    "swiglu": {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)},
+    "flash_attention": {torch.float32: (2e-5, 2e-5),
+                        torch.bfloat16: (2e-2, 2e-2)}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -96,8 +125,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+T0 = time.perf_counter()
+
+
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    """One phase's line, with the seconds since the script started."""
+    print(f"[phase {n}] ({time.perf_counter() - T0:.1f} s) {msg}", flush=True)
 
 
 def card() -> None:
@@ -381,8 +414,10 @@ def timing(fleet) -> dict:
                  f"{mv_ms:.4f} ms; bound {out['mkp_utility']['bound_ms']:.6f} ms "
                  f"({nbytes} B)")
     lines += compression_timing(u, w, out)
+    lines += serve_timing(out)
     phase(6, "median of 20 replays of a graph of 10 calls; bounds at "
-             "3.35 TB/s and 67 TFLOP/s f32: "
+             "3.35 TB/s and 67 TFLOP/s f32 (989 TFLOP/s bf16 for the "
+             "products of swiglu and flash_attention): "
              + " | ".join(lines))
     return out
 
@@ -434,11 +469,71 @@ def compression_timing(u, w, out) -> list[str]:
     return lines
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def serve_timing(out) -> list[str]:
+    """The serve path's kernels at the shapes SmolLM-360M's full-width
+    serve gives them (bf16): prefill (8 x 1,024 tokens) and, for rmsnorm
+    and swiglu, a decode step (8 tokens). Fills ``out`` and returns the
+    phase-6 lines. Library yardsticks the port never calls:
+    ``F.rms_norm``, ``x @ w_gate`` alone (no one call computes SwiGLU)
+    and ``F.scaled_dot_product_attention`` (causal, GQA)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    rn = lambda *shape, s=1.0: (torch.randn(
+        *shape, generator=g, device="cuda") * s).to(bf)
+    M, D, Fd = SERVE_B * SERVE_PROMPT, SERVE_D, SERVE_F
+    B, S, H, G, hd = SERVE_B, SERVE_PROMPT, SERVE_H, SERVE_G, SERVE_HD
+    scale = rn(D)
+    wg, wu = rn(D, Fd, s=D ** -0.5), rn(D, Fd, s=D ** -0.5)
+    q, k, v = rn(B, S, H, hd), rn(B, S, G, hd), rn(B, S, G, hd)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    lines = []
+
+    def timed(m, x):
+        norm = {"ms": time_ms(lambda: ops.rmsnorm(x, scale)),
+                "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale)),
+                "library_ms": time_ms(lambda: F.rms_norm(x, (D,), scale,
+                                                         1e-6)),
+                **bound(2 * (2 * m * D + D), 4 * m * D)}
+        mlp = {"ms": time_ms(lambda: ops.swiglu(x, wg, wu)),
+               "plain_ms": time_ms(lambda: ref.swiglu_ref(x, wg, wu)),
+               "library_ms": time_ms(lambda: x @ wg),
+               **bound(2 * (m * D + 2 * D * Fd + m * Fd), 4 * m * D * Fd,
+                       PEAK_BF16_FLOPS)}
+        return norm, mlp
+
+    norm, mlp = timed(M, rn(M, D))
+    norm["at_decode"], mlp["at_decode"] = timed(SERVE_B, rn(SERVE_B, D))
+    pairs = S * (S + 1) // 2                     # causal (q, k) pairs
+    attn = {"ms": time_ms(lambda: ops.flash_attention_bshd(q, k, v)),
+            "plain_ms": time_ms(lambda: ref.flash_attention_ref(qt, kt, vt)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            **bound(2 * (2 * B * H * S * hd + 2 * B * G * S * hd),
+                    4 * B * H * hd * pairs, PEAK_BF16_FLOPS)}
+    out.update(rmsnorm=norm, swiglu=mlp, flash_attention=attn)
+    for name, t, shape, lib in (
+            ("rmsnorm", norm, f"({M}, {D})", "F.rms_norm"),
+            ("rmsnorm decode", norm["at_decode"], f"({SERVE_B}, {D})",
+             "F.rms_norm"),
+            ("swiglu", mlp, f"M={M} D={D} F={Fd}", "x @ w_gate alone"),
+            ("swiglu decode", mlp["at_decode"], f"M={SERVE_B} D={D} F={Fd}",
+             "x @ w_gate alone"),
+            ("flash_attention", attn, f"q ({B}, {H}, {S}, {hd}) causal GQA "
+             f"G={G}, (B, S, H, hd) views", "SDPA causal GQA")):
+        lines.append(f"{name} {shape} bf16: kernel {t['ms']:.4f} ms, plain "
+                     f"{t['plain_ms']:.4f} ms, {lib} {t['library_ms']:.4f} "
+                     f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return lines
+
+
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS) -> dict:
     """The least time for the work: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over the rate for their type (f32 outside the tensor
+    cores unless given), whichever is larger."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    ops_ms = flops / peak_flops * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -911,6 +1006,252 @@ def none_is_uncompressed() -> None:
               f"round metrics bit-identical, no bytes column")
 
 
+def serve_kernels_vs_plain() -> dict:
+    """Phase 14: the serve path's three kernels against their plain
+    versions on the card, f32 and bf16. Returns max |err| at the serve
+    shapes in bf16 (prefill's for rmsnorm and swiglu)."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rn = lambda shape, dtype, s=1.0: (torch.randn(
+        shape, generator=g, device="cuda") * s).to(dtype)
+    err, n = {}, dict.fromkeys(SERVE_TOL, 0)
+
+    def held(name, case, got, exp):
+        rtol, atol = SERVE_TOL[name][exp.dtype]
+        check(got.dtype == exp.dtype and got.shape == exp.shape,
+              f"{name} {case}: dtype and shape")
+        torch.testing.assert_close(got.float(), exp.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name} {case}: {m}")
+        err[name, case] = float((got.float() - exp.float()).abs().max())
+        n[name] += 1
+
+    M, D, Fd = SERVE_B * SERVE_PROMPT, SERVE_D, SERVE_F
+    serve_attn = (SERVE_B, SERVE_H, SERVE_G, SERVE_PROMPT, SERVE_PROMPT,
+                  SERVE_HD, True, 0)
+    attn_cases = [serve_attn, (1, 2, 2, 32, 32, 16, True, 0),
+                  (2, 4, 2, 64, 64, 32, True, 0),
+                  (1, 8, 1, 48, 48, 64, True, 0),
+                  (1, 2, 1, 64, 64, 16, True, 8),
+                  (1, 2, 1, 64, 64, 16, True, 16),
+                  (2, 4, 2, 1, 128, 32, True, 0),
+                  (1, 2, 2, 32, 32, 16, False, 0),
+                  (1, 2, 2, 40, 40, 16, True, 0),
+                  (1, 15, 5, 200, 333, 64, True, 100),
+                  (1, 2, 1, 50, 50, 48, True, 0),
+                  (1, 2, 2, 33, 65, 256, True, 0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((M, D), (SERVE_B, 1, D), (4, 50), (3, 5, 128), (1, 1)):
+            x, s = rn(shape, dtype, 3.0), rn(shape[-1:], dtype)
+            held("rmsnorm", (shape, dtype), ops.rmsnorm(x, s),
+                 ref.rmsnorm_ref(x, s))
+        for m, d, f in ((M, D, Fd), (SERVE_B, D, Fd), (16, 32, 48),
+                        (7, 64, 24), (64, 128, 256), (5, 50, 37),
+                        (130, 200, 70)):
+            x = rn((m, d), dtype)
+            wg, wu = rn((d, f), dtype, d ** -0.5), rn((d, f), dtype, d ** -0.5)
+            held("swiglu", ((m, d, f), dtype), ops.swiglu(x, wg, wu),
+                 ref.swiglu_ref(x, wg, wu))
+        for case in attn_cases:
+            B, H, G, Sq, Sk, hd, causal, window = case
+            q, k, v = (rn((B, S, h, hd), dtype) for S, h in
+                       ((Sq, H), (Sk, G), (Sk, G)))
+            held("flash_attention", (case, dtype),
+                 ops.flash_attention_bshd(q, k, v, causal=causal,
+                                          window=window),
+                 ops.PLAIN.flash_attention_bshd(q, k, v, causal=causal,
+                                                window=window))
+    torch.cuda.synchronize()
+    bf = torch.bfloat16
+    main = {"rmsnorm": err["rmsnorm", ((M, D), bf)],
+            "swiglu": err["swiglu", ((M, D, Fd), bf)],
+            "flash_attention": err["flash_attention", (serve_attn, bf)]}
+    worst = {name: max(e for (k, _), e in err.items() if k == name)
+             for name in SERVE_TOL}
+    phase(14, f"serve kernels vs plain on the card, f32 and bf16: rmsnorm "
+              f"{n['rmsnorm']} cases (rows x D in {M}x{D}, {SERVE_B}x{D}, "
+              f"4x50, 15x128, 1x1), swiglu {n['swiglu']} (M, D, F in "
+              f"({M}, {D}, {Fd}), ({SERVE_B}, {D}, {Fd}) and ragged), "
+              f"flash_attention {n['flash_attention']} ((B, H, G, Sq, Sk, hd) "
+              f"= {serve_attn[:6]} causal and the reference's sweep: MHA, GQA, "
+              f"MQA, windows 8/16/100, Sq=1, non-causal, ragged S, hd 48 and "
+              f"256), all within the stated tolerances; max |err| at the "
+              f"serve shapes in bf16: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in main.items())
+              + "; largest over all cases: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return main
+
+
+def serve_full_width() -> dict:
+    """Phase 15: SmolLM-360M at its published width in bf16 through the
+    kernels (the main path, counts set to 0 just before it), then its
+    prefill and SERVE_TF teacher-forced decode steps through the kernels,
+    through the plain versions, and through the plain versions in f32 on
+    the same weights. Returns the launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), use_kernels=True)
+    L = cfg.num_layers
+    check((L, cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads,
+           cfg.dtype) == (32, SERVE_D, SERVE_F, SERVE_H, SERVE_G, "bfloat16"),
+          "SmolLM-360M at its published width, bf16")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)), dtype=torch.int32,
+        device="cuda")
+
+    def generate(new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache, _ = T.prefill(cfg, params, prompts)
+        cache = T.grow_cache(cfg, cache, new)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        t_pre, t = time.perf_counter() - t, time.perf_counter()
+        toks = [tok]
+        for step in range(new - 1):
+            logits, cache = T.decode_step(cfg, params, tok, cache,
+                                          SERVE_PROMPT + step)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), t_pre, time.perf_counter() - t
+
+    generate(2)                  # warm-up, before the counts are set to 0
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, t_pre, t_dec = generate(SERVE_NEW)
+    counts = dict(ops.LAUNCHES)
+    want = {"flash_attention": L, "swiglu": L * SERVE_NEW,
+            "rmsnorm": (2 * L + 1) * SERVE_NEW}
+    check({n: c for n, c in counts.items() if c} == want,
+          f"serve launches {counts} == {want}")
+    check(tokens.shape == (SERVE_B, SERVE_NEW) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, "generated token ids")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def teacher(kernels, c=cfg, p=params, profiles=None):
+        """Prefill and SERVE_TF decode steps fed the generated tokens;
+        with ``profiles`` (a list), each half runs under the profiler."""
+        run = device_profile if profiles is not None else \
+            (lambda fn: (fn(), None))
+        (logits, cache, _), prof = run(
+            lambda: T.prefill(c, p, prompts, kernels=kernels))
+        cache = T.grow_cache(c, cache, SERVE_TF)
+        outs = [logits.float()]
+
+        def decode():
+            nonlocal logits, cache
+            for step in range(SERVE_TF):
+                logits, cache = T.decode_step(c, p, tokens[:, step:step + 1],
+                                              cache, SERVE_PROMPT + step,
+                                              kernels=kernels)
+                outs.append(logits.float())
+        _, prof2 = run(decode)
+        if profiles is not None:
+            profiles += [prof, prof2]
+        return torch.cat(outs, 1)             # (B, 1 + SERVE_TF, vocab)
+
+    profiles = []
+    kern, plain = teacher(None, profiles=profiles), teacher(ops.PLAIN)
+    p32 = T.tree_map(lambda a: a.float(), params)
+    f32 = teacher(ops.PLAIN, dataclasses.replace(cfg, dtype="float32"), p32)
+    del p32
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(kern).all()), "finite logits")
+    d_kp = (kern - plain).abs().amax(dim=(0, 2))        # per position
+    d_pf = (plain - f32).abs().amax(dim=(0, 2))
+    top = float(plain.abs().max())
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    # Kernel and plain version round bf16 at different places; their gap
+    # is held to twice the plain bf16 path's own gap from f32 on the same
+    # weights, and to 5 % of the largest |logit|.
+    check(float(d_kp.max()) <= 2 * float(d_pf.max()),
+          f"kernel vs plain {float(d_kp.max())} <= 2 x bf16-vs-f32 "
+          f"{float(d_pf.max())}")
+    check(float(d_kp.max()) <= 0.05 * top,
+          f"kernel vs plain {float(d_kp.max())} <= 5 % of max |logit| {top}")
+    steps = SERVE_NEW - 1
+    (pre_dev, pre_n, pre_top), (dec_dev, dec_n, dec_top) = profiles
+    dec_dev /= SERVE_TF
+    busy = ("not measured (the profiler saw no device time)" if not dec_dev
+            else f"{dec_dev / (t_dec / steps * 1e3) * 100:.1f} %")
+    phase(15, f"full-width serve: {cfg.name} ({common.count_params(params)} "
+              f"params, bf16, random weights from seed 0 drawn in "
+              f"{init_s:.2f} s), batch {SERVE_B} x prompt {SERVE_PROMPT} + "
+              f"{SERVE_NEW} new tokens, use_kernels=True: prefill "
+              f"{t_pre * 1e3:.1f} ms ({SERVE_B * SERVE_PROMPT / t_pre:.0f} "
+              f"prompt tok/s), decode {t_dec / steps * 1e3:.2f} ms a step of "
+              f"{SERVE_B} tokens over {steps} steps ({SERVE_B * steps / t_dec:.1f} "
+              f"tok/s), peak memory {peak_gb:.2f} GB; launches "
+              + ", ".join(f"{n} {c}" for n, c in counts.items() if c)
+              + f" (as expected); kernels vs kernels=ops.PLAIN on the same "
+              f"weights, prefill and {SERVE_TF} teacher-forced steps: max "
+              f"|dlogit| prefill {float(d_kp[0]):.4f}, decode "
+              f"{float(d_kp[1:].max()):.4f} (plain bf16 vs plain f32: "
+              f"{float(d_pf[0]):.4f} / {float(d_pf[1:].max()):.4f}; max "
+              f"|logit| {top:.3f}); argmax agrees at {agree * 100:.1f} % of "
+              f"positions; torch.profiler device time, kernel path: prefill "
+              f"{pre_dev:.2f} ms in {pre_n} kernels (top: {pre_top}), decode "
+              f"{dec_dev:.3f} ms a step in {dec_n / SERVE_TF:.0f} kernels a "
+              f"step (top: {dec_top}), so the device is busy {busy} of a "
+              f"decode step's wall")
+    return counts
+
+
+def device_profile(fn):
+    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activity). Returns
+    its result and (device ms summed over the kernels, the number of
+    kernel launches, the five kernels with the most device time as
+    text). Only the kernel events count: the
+    CPU ops that launched them carry the same device time again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    events.sort(key=dev, reverse=True)
+    total_ms = sum(dev(e) for e in events) / 1e3
+    top = ", ".join(f"{e.key[:48]} x{e.count} {dev(e) / 1e3:.2f} ms"
+                    for e in events[:5])
+    return out, (total_ms, sum(e.count for e in events), top)
+
+
+def serve_entry_point() -> None:
+    """Phase 16: ``serve("smollm-360m")`` at its defaults on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve("smollm-360m", verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in ops.LAUNCHES.items() if c}
+    check(out.shape == (4, 16) and out.device.type == "cuda",
+          "serve() returns (4, 16) tokens on the card")
+    check(counts == {"flash_attention": 2, "swiglu": 32, "rmsnorm": 80},
+          f"serve() launches {counts}")
+    phase(16, f'serve("smollm-360m") defaults (reduced: 2 layers, d 256, '
+              f"4 x 32 prompt, 16 tokens) on the card in {wall:.2f} s; "
+              f"launches " + ", ".join(f"{n} {c}" for n, c in counts.items())
+              + f"; first row {out[0, :8].tolist()}")
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -934,6 +1275,9 @@ def main() -> int:
     errs.update(codec_kernels_vs_plain())
     codec_launches = compressed_loop(base_ms)
     none_is_uncompressed()
+    errs.update(serve_kernels_vs_plain())
+    serve_launches = serve_full_width()
+    serve_entry_point()
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",
@@ -953,6 +1297,11 @@ def main() -> int:
         records.append(record(name, csrc + source,
                               f"src/repro/kernels/compression.py:{line}",
                               codec_launches[name], errs[name], t[name]))
+    for name, line in (("rmsnorm", "rmsnorm.py:23"), ("swiglu", "swiglu.py:38"),
+                       ("flash_attention", "flash_attention.py:77")):
+        records.append(record(name, csrc + name + ".cu",
+                              "src/repro/kernels/" + line,
+                              serve_launches[name], errs[name], t[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,12 @@
+"""InternLM2-1.8B [arXiv:2403.17297] — dense GQA kv=8."""
+from repro_torch.models.common import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="internlm2-1.8b", family="dense",
+        num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8,
+        d_ff=8192, vocab_size=92544, head_dim=128,
+        rope_theta=1_000_000.0,
+        source="arXiv:2403.17297",
+    )

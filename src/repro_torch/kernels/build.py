@@ -108,6 +108,11 @@ def entry(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
     return fn
 
 
+def aligned16(*tensors) -> bool:
+    """Every tensor starts on a 16-byte boundary (for 16-byte loads)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def launch(fn: ctypes._CFuncPtr, device, *args) -> None:
     """Call a typed entry on ``device`` and PyTorch's current stream
     there; raise if it reports a CUDA error (a refused launch never

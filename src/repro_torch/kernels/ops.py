@@ -25,9 +25,9 @@ through the kernel; set an entry to 0 to start a count.
   them.
 
 ``PLAIN`` holds the plain versions of the ops that fl.round and
-fl.compression call, under the same names: passed as their
-``kernels`` argument, it runs a path on the card through the plain
-versions, to hold it against the kernels.
+fl.compression and models.transformer call, under the same names:
+passed as their ``kernels`` argument, it runs a path on the card through
+the plain versions, to hold it against the kernels.
 """
 from __future__ import annotations
 
@@ -37,13 +37,17 @@ import torch
 
 from . import compression as _compression
 from . import fedavg_agg as _fedavg_agg
+from . import flash_attention as _flash_attention
 from . import mkp_utility as _mkp_utility
 from . import ref
+from . import rmsnorm as _rmsnorm
 from . import segmented_topk as _segmented_topk
+from . import swiglu as _swiglu
 
 LAUNCHES = {"fedavg_agg_quality": 0, "segmented_topk": 0, "mkp_utility": 0,
             "topk_sparsify": 0, "quantize_i8": 0, "dequantize_i8": 0,
-            "fedavg_agg_quality_i8": 0}
+            "fedavg_agg_quality_i8": 0, "rmsnorm": 0, "swiglu": 0,
+            "flash_attention": 0}
 
 
 def fedavg_agg_quality(updates: torch.Tensor, weights: torch.Tensor):
@@ -130,13 +134,67 @@ def fedavg_agg_quality_i8(values: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of x (..., D) with scale (D,); see
+    :func:`repro_torch.kernels.ref.rmsnorm_ref`."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps)
+    out = _rmsnorm.rmsnorm(x, scale, eps)
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+           w_up: torch.Tensor) -> torch.Tensor:
+    """``silu(x @ Wg) * (x @ Wu)``: x (..., D), weights (D, F) -> (..., F);
+    see :func:`repro_torch.kernels.ref.swiglu_ref`."""
+    if x.device.type == "cpu":
+        return ref.swiglu_ref(x, w_gate, w_up)
+    out = _swiglu.swiglu(x, w_gate, w_up)
+    LAUNCHES["swiglu"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, H, Sq, hd), k / v (B, G, Sk, hd) -> (B, H, Sq, hd); see
+    :func:`repro_torch.kernels.ref.flash_attention_ref`."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = _flash_attention.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def bshd(attend):
+    """An attention op on (B, H, S, hd) as one on the models' (B, S, H, hd)
+    layout: the axis swaps are views (the kernel takes strides)."""
+    def adapter(q, k, v, *, causal=True, window=0):
+        t = lambda x: x.transpose(1, 2)
+        return t(attend(t(q), t(k), t(v), causal=causal, window=window))
+    return adapter
+
+
+flash_attention_bshd = bshd(flash_attention)
+flash_attention_bshd.__doc__ = (
+    "Adapter for models.layers' (B, S, H, hd) layout: "
+    ":func:`flash_attention` on views with axes 1 and 2 swapped.")
+
+
 PLAIN = types.SimpleNamespace(
     fedavg_agg_quality=ref.fedavg_agg_quality_ref,
     topk_sparsify=ref.topk_sparsify_ref,
     quantize_i8=ref.quantize_i8_ref,
     dequantize_i8=ref.dequantize_i8_ref,
-    fedavg_agg_quality_i8=ref.fedavg_agg_quality_i8_ref)
+    fedavg_agg_quality_i8=ref.fedavg_agg_quality_i8_ref,
+    rmsnorm=ref.rmsnorm_ref,
+    swiglu=ref.swiglu_ref,
+    flash_attention=ref.flash_attention_ref,
+    flash_attention_bshd=bshd(ref.flash_attention_ref))
 
-__all__ = ["LAUNCHES", "PLAIN", "dequantize_i8", "fedavg_agg_quality",
-           "fedavg_agg_quality_i8", "mkp_utility", "quantize_i8",
-           "segmented_topk", "topk_sparsify"]
+__all__ = ["LAUNCHES", "PLAIN", "bshd", "dequantize_i8", "fedavg_agg_quality",
+           "fedavg_agg_quality_i8", "flash_attention", "flash_attention_bshd",
+           "mkp_utility", "quantize_i8", "rmsnorm", "segmented_topk",
+           "swiglu", "topk_sparsify"]

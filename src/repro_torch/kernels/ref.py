@@ -122,3 +122,52 @@ def mkp_utility_ref(values: torch.Tensor, weights: torch.Tensor,
     fits = (w <= r + eps).all(dim=1) & (selectable.to(torch.float32) > 0)
     util = v / penalty.clamp_min(eps)
     return torch.where(fits, util, torch.full_like(util, float("-inf")))
+
+
+# The mask value of the JAX package's attention (bf16-safe, finite).
+NEG_INF = -2.0 ** 30
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """x (..., D), scale (D,): ``(x · rsqrt(mean(x²) + eps))`` in f32,
+    cast to x's type, then times scale (the result takes the promoted
+    type of the two, as in JAX)."""
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """x (..., D), w_gate / w_up (D, F) -> (..., F) in x's type:
+    ``silu(x @ Wg) * (x @ Wu)`` with both products in f32."""
+    xf = x.to(torch.float32)
+    g = xf @ w_gate.to(torch.float32)
+    u = xf @ w_up.to(torch.float32)
+    return (torch.nn.functional.silu(g) * u).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """q (B, H, Sq, hd), k / v (B, G, Sk, hd) with H % G == 0 ->
+    (B, H, Sq, hd) in q's type. Scores, softmax and the weighted sum in
+    f32; masked scores are -2**30; right-aligned (query i at position
+    i + Sk - Sq) when Sq < Sk."""
+    B, H, Sq, hd = q.shape
+    G, Sk = k.shape[1], k.shape[2]
+    rep = H // G
+    scale = hd ** -0.5 if scale is None else scale
+    qf = q.to(torch.float32).reshape(B, G, rep, Sq, hd) * scale
+    s = torch.einsum("bgrqh,bgkh->bgrqk", qf, k.to(torch.float32))
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bgkh->bgrqh", p, v.to(torch.float32))
+    return o.reshape(B, H, Sq, hd).to(q.dtype)

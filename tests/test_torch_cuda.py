@@ -21,13 +21,29 @@ of the aggregate differ, so a later round may move an int8 value by a
 step or swap a near-tie at the top-k threshold: at most 0.1 % of the
 parameters beyond rtol 1e-4 / atol 1e-5, none beyond half the chunk's
 largest parameter change.
+
+The serve path's kernels. ``rmsnorm``: f32 within rtol = atol = 2e-5
+(sum-of-squares order and ``rsqrtf``); bf16 within two bf16 ulps (rtol
+2**-6), as an ulp of difference before the cast can become two after the
+scale's rounding. ``swiglu``: both sides sum exact products in f32 in
+another order, and the kernel's SiLU is g / (1 + exp(-g)) where the plain
+version's is g * sigmoid(g): rtol 1e-5 in f32 and one bf16 ulp (2**-7) in
+bf16, with atol 1e-4 in both, since where g is near 0 its f32 sum of D
+products loses its relative accuracy and |u| (up to about 30) scales
+that error (seen: 3e-5 at D = 960 in bf16). ``flash_attention``: f32
+rtol = atol = 2e-5, bf16 2e-2 (the reference's own kernel tolerances,
+tests/test_kernels.py; the bf16 kernel also rounds the probabilities to
+bf16 for the P·V product).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import optim
 from repro_torch import random as trandom
+from repro_torch.configs import get_config
 from repro_torch.core import engine
 from repro_torch.core.pool import ClientPoolState
 from repro_torch.data.synthetic import make_classification_data
@@ -37,8 +53,12 @@ from repro_torch.fl.partition import partition_labels
 from repro_torch.fl.round import make_fl_rounds_scan
 from repro_torch.kernels import compression as kcomp
 from repro_torch.kernels import fedavg_agg, mkp_utility, ops, ref
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels import segmented_topk
+from repro_torch.kernels import swiglu as kswiglu
 from repro_torch.models import cnn
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -386,3 +406,161 @@ def test_compressed_chunk_kernels_vs_plain(cuda, text):
     assert off <= 0.001 * p
     torch.testing.assert_close(ik["q_values"], ip["q_values"], rtol=0,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The serve path's kernels: rmsnorm, swiglu, flash_attention
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = {
+    "rmsnorm": {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -6, 1e-6)},
+    "swiglu": {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)},
+    "flash_attention": {torch.float32: (2e-5, 2e-5),
+                        torch.bfloat16: (2e-2, 2e-2)}}
+
+
+def assert_serve_close(name, got, want):
+    rtol, atol = SERVE_TOL[name][want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def randn(shape, dtype, seed, device, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1), (8, 64), (3, 5, 128), (4, 50),
+                                   (7, 960), (8192, 960), (2, 4100)])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    x = randn(shape, dtype, 1, cuda, 3.0)
+    s = randn(shape[-1:], dtype, 2, cuda)
+    before = ops.LAUNCHES["rmsnorm"]
+    got = ops.rmsnorm(x, s)
+    assert ops.LAUNCHES["rmsnorm"] == before + 1
+    assert_serve_close("rmsnorm", got, ref.rmsnorm_ref(x, s))
+    assert torch.equal(got, ops.rmsnorm(x, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(16, 32, 48), (7, 64, 24),
+                                   (64, 128, 256), (5, 50, 37), (1, 1, 1),
+                                   (8, 960, 2560), (1000, 960, 2560),
+                                   (130, 200, 70)])
+def test_swiglu_kernel_matches_plain(cuda, M, D, F, dtype):
+    x = randn((M, D), dtype, 3, cuda)
+    wg = randn((D, F), dtype, 4, cuda, 0.1)
+    wu = randn((D, F), dtype, 5, cuda, 0.1)
+    before = ops.LAUNCHES["swiglu"]
+    got = ops.swiglu(x, wg, wu)
+    assert ops.LAUNCHES["swiglu"] == before + 1
+    assert_serve_close("swiglu", got, ref.swiglu_ref(x, wg, wu))
+    x3 = x.reshape(1, M, D)
+    assert torch.equal(ops.swiglu(x3, wg, wu), got.reshape(1, M, F))
+
+
+# (B, H, G, Sq, Sk, hd, causal, window): the sweep of tests/test_kernels.py,
+# then the serve shape's head size at ragged lengths, the CUDA-core
+# kernel's head sizes (48, 256) and the tensor-core kernel's largest (128)
+FA_CASES = [(1, 2, 2, 32, 32, 16, True, 0), (2, 4, 2, 64, 64, 32, True, 0),
+            (1, 8, 1, 48, 48, 64, True, 0), (1, 2, 1, 64, 64, 16, True, 8),
+            (1, 2, 1, 64, 64, 16, True, 16), (2, 4, 2, 1, 128, 32, True, 0),
+            (1, 2, 2, 32, 32, 16, False, 0), (1, 2, 2, 40, 40, 16, True, 0),
+            (2, 15, 5, 300, 300, 64, True, 0),
+            (1, 15, 5, 200, 333, 64, True, 100),
+            (1, 4, 2, 70, 70, 64, False, 30), (1, 4, 4, 1, 333, 64, True, 64),
+            (1, 2, 1, 50, 50, 48, True, 0), (1, 2, 2, 33, 65, 256, True, 0),
+            (1, 4, 2, 129, 129, 128, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    B, H, G, Sq, Sk, hd, causal, window = case
+    q = randn((B, H, Sq, hd), dtype, 6, cuda)
+    k = randn((B, G, Sk, hd), dtype, 7, cuda)
+    v = randn((B, G, Sk, hd), dtype, 8, cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert_serve_close("flash_attention", got, want)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bshd_reads_views_in_place(cuda, dtype):
+    """The models' (B, S, H, hd) tensors go in as transposed views; the
+    output comes back (B, S, H, hd) contiguous, no copy made."""
+    q = randn((2, 100, 15, 64), dtype, 9, cuda)
+    k = randn((2, 100, 5, 64), dtype, 10, cuda)
+    v = randn((2, 100, 5, 64), dtype, 11, cuda)
+    got = ops.flash_attention_bshd(q, k, v, causal=True, window=0)
+    assert got.is_contiguous() and got.shape == q.shape
+    assert_serve_close("flash_attention", got,
+                       ops.PLAIN.flash_attention_bshd(q, k, v, causal=True,
+                                                      window=0))
+
+
+def test_serve_kernels_refuse_bad_inputs(cuda):
+    x = torch.ones(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        krms.rmsnorm(x.half(), torch.ones(64, device=cuda).half())
+    with pytest.raises(ValueError, match="same type"):
+        krms.rmsnorm(x, torch.ones(64, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=r"\(D,\)"):
+        krms.rmsnorm(x, torch.ones(65, device=cuda))
+    w = torch.ones(64, 32, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kswiglu.swiglu(x.double(), w.double(), w.double())
+    with pytest.raises(ValueError, match=r"\(D, F\)"):
+        kswiglu.swiglu(x, w, torch.ones(64, 31, device=cuda))
+    q = torch.ones(1, 4, 8, 64, device=cuda)
+    kv = torch.ones(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kflash.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="hd <= 256"):
+        big = torch.ones(1, 2, 8, 320, device=cuda)
+        kflash.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="not a multiple"):
+        kflash.flash_attention(q, torch.ones(1, 3, 8, 64, device=cuda),
+                               torch.ones(1, 3, 8, 64, device=cuda))
+    with pytest.raises(ValueError, match="no key"):
+        kflash.flash_attention(q, kv[:, :, :4], kv[:, :, :4])
+    with pytest.raises(ValueError, match="one type"):
+        kflash.flash_attention(q, kv.to(torch.bfloat16), kv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_serve_kernels_vs_plain(cuda, dtype):
+    """A reduced SmolLM (two layers, GQA) on the card: prefill and 4
+    teacher-forced decode steps through the kernels against
+    ``kernels=ops.PLAIN`` on the same weights, with exact launch counts.
+    Logits of two layers: f32 within 1e-4; bf16 within 5e-2 (bf16
+    activations rounded at other places through two layers)."""
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              use_kernels=True, dtype=dtype, num_kv_heads=2)
+    params = T.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    for name in ("rmsnorm", "swiglu", "flash_attention"):
+        ops.LAUNCHES[name] = 0
+    runs = []
+    for kernels in (None, ops.PLAIN):
+        logits, cache, _ = T.prefill(cfg, params, toks, kernels=kernels)
+        cache = T.grow_cache(cfg, cache, 4)
+        outs = [logits]
+        for step in range(4):
+            logits, cache = T.decode_step(cfg, params, toks[:, step:step + 1],
+                                          cache, 40 + step, kernels=kernels)
+            outs.append(logits)
+        runs.append(torch.cat(outs, 1).float())
+    n = cfg.num_layers
+    assert ops.LAUNCHES["flash_attention"] == n
+    assert ops.LAUNCHES["swiglu"] == 5 * n
+    assert ops.LAUNCHES["rmsnorm"] == 5 * (2 * n + 1)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(runs[0], runs[1], rtol=tol, atol=tol)

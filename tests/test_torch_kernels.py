@@ -8,7 +8,10 @@ CUDA kernels themselves are held against the plain versions on the card
 - ``segmented_topk`` over the shape sweep of tests/test_scale_plane.py
   and at small C, with lowest-lane ties and -inf padding: exact (values
   and lanes of every finite entry);
-- ``mkp_utility`` over ragged n x m.
+- ``mkp_utility`` over ragged n x m;
+- ``rmsnorm``, ``swiglu`` and ``flash_attention`` over the sweeps of
+  tests/test_kernels.py (causal MHA / GQA / MQA, sliding windows, Sq=1
+  against a long KV, non-causal, ragged S; ragged M, D, F).
 
 Tolerances: both sides sum in f32 but in different orders, so the f32
 outputs agree to a few ulps of the largest partial sum (rtol 1e-5,
@@ -17,7 +20,11 @@ bf16, and an ulp of difference in f32 can move that rounding by one
 bf16 ulp (rtol 2**-7). ``mkp_utility``: the JAX oracle's penalty is a
 dot whose order XLA chooses, the port's a left-to-right column sum, so
 utilities agree to a few f32 ulps (rtol 1e-6); which items are
-feasible (finite) is exact.
+feasible (finite) is exact. The serve path's ops use the reference's own
+kernel tolerances (tests/test_kernels.py): rtol = atol = 2e-5 in f32,
+where only summation order, ``rsqrt`` and ``exp`` rounding differ, and
+2e-2 in bf16, where the f32 results straddle bf16 roundings (one bf16
+ulp is 2**-8 relative).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -119,8 +126,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_compiles_every_source_into_one_library():
     names = [p.name for p in build.sources()]
-    assert names == sorted(["fedavg_agg_quality.cu", "mkp_utility.cu",
-                            "quantize_i8.cu", "segmented_topk.cu"])
+    assert names == sorted(["fedavg_agg_quality.cu", "flash_attention.cu",
+                            "mkp_utility.cu", "quantize_i8.cu",
+                            "rmsnorm.cu", "segmented_topk.cu", "swiglu.cu"])
     assert build._lib_path().parent == build.BUILD_DIR
 
 
@@ -265,3 +273,154 @@ def test_mkp_utility_kernel_refuses_cpu_tensors():
     args = [torch.as_tensor(a) for a in mkp_inputs(5, 2)]
     with pytest.raises(ValueError, match="CUDA"):
         mkp_utility.mkp_utility(*args)
+
+
+# ---------------------------------------------------------------------------
+# The serve path's ops: rmsnorm, swiglu, flash_attention
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def both(shape, dtype, seed, mult=1.0):
+    """The same seeded normals as a torch tensor and a jax array of
+    ``dtype`` (bf16 rounded once, in torch, and handed over exactly)."""
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    t = torch.as_tensor(a * np.float32(mult)).to(DTYPES[dtype][0])
+    return t, jnp.asarray(t.to(torch.float32).numpy()).astype(DTYPES[dtype][1])
+
+
+def close(port, other, dtype):
+    np.testing.assert_allclose(port.to(torch.float32).numpy(),
+                               np.asarray(other, np.float32),
+                               **SERVE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (1, 256), (7, 960)])
+def test_rmsnorm_plain_matches_oracle_and_pallas(shape, dtype):
+    from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+    x, xj = both(shape, dtype, 0, mult=3.0)
+    s, sj = both(shape[-1:], dtype, 1)
+    port = ref.rmsnorm_ref(x, s)
+    assert port.dtype == DTYPES[dtype][0] and port.shape == x.shape
+    close(port, jref.rmsnorm_ref(xj, sj), dtype)
+    close(port, pallas_rmsnorm(xj, sj, block_rows=4, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M,D,F", [(16, 32, 48), (7, 64, 24), (64, 128, 256),
+                                   (5, 50, 37)])
+def test_swiglu_plain_matches_oracle_and_pallas(M, D, F, dtype):
+    from repro.kernels.swiglu import swiglu as pallas_swiglu
+    x, xj = both((M, D), dtype, 0)
+    wg, wgj = both((D, F), dtype, 1, mult=0.1)
+    wu, wuj = both((D, F), dtype, 2, mult=0.1)
+    port = ref.swiglu_ref(x, wg, wu)
+    assert port.dtype == DTYPES[dtype][0] and port.shape == (M, F)
+    close(port, jref.swiglu_ref(xj, wgj, wuj), dtype)
+    # The Pallas kernel does not mask a ragged K tail (its padded x and W
+    # blocks hold garbage, NaN in interpret mode): one K block when D is
+    # ragged. Ragged M and F tails only reach padded outputs.
+    bk = 16 if D % 16 == 0 else D
+    close(port, pallas_swiglu(xj, wgj, wuj, block_m=8, block_n=16,
+                              block_k=bk, interpret=True), dtype)
+
+
+def test_swiglu_plain_takes_leading_axes():
+    x, _ = both((2, 3, 16), "float32", 0)
+    wg, _ = both((16, 8), "float32", 1)
+    wu, _ = both((16, 8), "float32", 2)
+    got = ref.swiglu_ref(x, wg, wu)
+    assert got.shape == (2, 3, 8)
+    torch.testing.assert_close(got.reshape(6, 8),
+                               ref.swiglu_ref(x.reshape(6, 16), wg, wu),
+                               rtol=0, atol=0)
+
+
+# (B, H, G, Sq, Sk, hd, causal, window): the sweep of tests/test_kernels.py
+ATTN_CASES = {
+    "mha": (1, 2, 2, 32, 32, 16, True, 0),
+    "gqa_rep2": (2, 4, 2, 64, 64, 32, True, 0),
+    "mqa_ragged": (1, 8, 1, 48, 48, 64, True, 0),
+    "window8": (1, 2, 1, 64, 64, 16, True, 8),
+    "window16": (1, 2, 1, 64, 64, 16, True, 16),
+    "decode_sq1": (2, 4, 2, 1, 128, 32, True, 0),
+    "noncausal": (1, 2, 2, 32, 32, 16, False, 0),
+    "ragged_s40": (1, 2, 2, 40, 40, 16, True, 0),
+    "sq_lt_sk_window": (1, 4, 2, 20, 50, 32, True, 12),
+}
+
+
+def attn_inputs(case, dtype, seed=0):
+    B, H, G, Sq, Sk, hd, _, _ = ATTN_CASES[case]
+    q = both((B, H, Sq, hd), dtype, seed)
+    k = both((B, G, Sk, hd), dtype, seed + 1)
+    v = both((B, G, Sk, hd), dtype, seed + 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_flash_attention_plain_matches_oracle_and_pallas(case, dtype):
+    from repro.kernels.flash_attention import flash_attention as pallas_fa
+    causal, window = ATTN_CASES[case][6:]
+    (q, qj), (k, kj), (v, vj) = attn_inputs(case, dtype)
+    port = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert port.dtype == q.dtype and port.shape == q.shape
+    close(port, jref.flash_attention_ref(qj, kj, vj, causal=causal,
+                                         window=window), dtype)
+    close(port, pallas_fa(qj, kj, vj, causal=causal, window=window,
+                          block_q=16, block_k=16, interpret=True), dtype)
+
+
+def test_serve_ops_cpu_take_plain_path_and_count_nothing():
+    (q, _), (k, _), (v, _) = attn_inputs("gqa_rep2", "float32")
+    x, _ = both((6, 32), "float32", 3)
+    s, _ = both((32,), "float32", 4)
+    wg, _ = both((32, 24), "float32", 5)
+    before = dict(ops.LAUNCHES)
+    assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s))
+    assert torch.equal(ops.swiglu(x, wg, wg), ref.swiglu_ref(x, wg, wg))
+    assert torch.equal(ops.flash_attention(q, k, v, window=8),
+                       ref.flash_attention_ref(q, k, v, window=8))
+    assert ops.LAUNCHES == before
+    for name in ("rmsnorm", "swiglu", "flash_attention",
+                 "flash_attention_bshd"):
+        assert callable(getattr(ops.PLAIN, name))
+
+
+def test_flash_attention_bshd_is_the_transposed_op():
+    """Both adapters (kernel op and plain) swap axes 1 and 2 as views and
+    agree with the reference's adapter."""
+    (q, qj), (k, kj), (v, vj) = attn_inputs("gqa_rep2", "float32")
+    t = lambda a: a.transpose(1, 2).contiguous()
+    want = jops.flash_attention_bshd(*(jnp.swapaxes(a, 1, 2)
+                                       for a in (qj, kj, vj)), window=16)
+    for fn in (ops.flash_attention_bshd, ops.PLAIN.flash_attention_bshd):
+        got = fn(t(q), t(k), t(v), causal=True, window=16)
+        assert got.shape == t(q).shape
+        close(got, want, "float32")
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("rmsnorm", lambda: (torch.ones(2, 8), torch.ones(8))),
+    ("swiglu", lambda: (torch.ones(2, 8), torch.ones(8, 4),
+                        torch.ones(8, 4))),
+    ("flash_attention", lambda: (torch.ones(1, 2, 4, 16),
+                                 torch.ones(1, 1, 4, 16),
+                                 torch.ones(1, 1, 4, 16)))])
+def test_serve_kernel_wrappers_refuse_cpu_tensors(fn, args):
+    from repro_torch.kernels import flash_attention, rmsnorm, swiglu
+    mod = {"rmsnorm": rmsnorm, "swiglu": swiglu,
+           "flash_attention": flash_attention}[fn]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(mod, fn)(*args())
+
+
+def test_flash_attention_tensor_core_route():
+    from repro_torch.kernels import flash_attention
+    assert flash_attention.uses_mma(torch.bfloat16, 64)
+    assert not flash_attention.uses_mma(torch.bfloat16, 48)
+    assert not flash_attention.uses_mma(torch.float32, 64)

@@ -186,6 +186,11 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.kernels.mkp_utility\n"
         "import repro_torch.kernels.compression, repro_torch.fl.compression\n"
         "import repro_torch.optim, repro_torch.optim.schedules\n"
+        "import repro_torch.configs, repro_torch.models.transformer\n"
+        "import repro_torch.models.layers, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.rmsnorm, repro_torch.kernels.swiglu\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "repro_torch.configs.all_configs()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
