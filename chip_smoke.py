@@ -13,8 +13,8 @@ plain PyTorch version. Phases, one line each:
 3. ``fedavg_agg_quality`` against its plain version on the card, at the
    service loop's shape and at ragged shapes, in f32 and bf16;
 4. one round chunk (S=4, CIFAR_CNN) from the same parameters through
-   the kernels and through their plain versions (TF32 off for matmuls
-   and cuDNN convolutions, so both runs are full f32);
+   the kernels and through their plain versions (both full f32: matmuls
+   by PyTorch's default, convolutions by the library's cuDNN pin);
 5. the service loop: ``run_fl_experiment(..., data_plane="device")`` on
    the card with launch counts set to 0 just before and read just after;
 6. each kernel, its plain version and its library yardstick timed with
@@ -54,9 +54,26 @@ plain PyTorch version. Phases, one line each:
     decode steps against the same weights through ``kernels=ops.PLAIN``,
     held to the bf16 path's own distance from f32;
 16. the entry point ``repro_torch.launch.serve.serve("smollm-360m")`` at
-    its default (reduced) size.
+    its default (reduced) size;
+17. ``fedavg_agg`` against its plain version on the card, f32 and bf16,
+    K from 1 to 100 (past row 1's 64), P from 1 to 1,070,794;
+18. the host-loop plane: ``run_fl_experiment`` at its default
+    (``data_plane="host"``) at CIFAR_CNN width, then 8 rounds each of
+    ``make_fl_round(use_agg_kernel=True)`` (through
+    ``FLClassificationSim``'s batch assembly) and of the two-pass
+    ``make_fl_rounds_scan(use_agg_kernel=True)`` at K = 13: launches
+    exactly 8 a round, held against the same rounds through
+    ``kernels=ops.PLAIN``;
+19. the fault plane on both planes: the reference's ``bench_faults``
+    plan with over-scheduling, a quorum and a deadline, 16 rounds each;
+    every committed round met its quorum, and a client that missed the
+    close has b_t = 0 and q = 0 as the trainer returns them;
+20. what a library caller gets, with no flag set by the caller: each
+    plane run twice and with an inactive ``FaultPlan()`` from one seed,
+    params and history bit-equal; a device-plane chunk timed with the
+    library's cuDNN pin and with PyTorch's defaults in its place.
 
-Phases 5, 8, 9, 12, 15 and 16 set their kernels' launch counts to 0
+Phases 5, 8, 9, 12, 15, 16 and 18 set their kernels' launch counts to 0
 just before and read them just after. Each phase line carries the
 seconds since the script started. Any failure raises and exits non-zero. The
 last two lines are the kernel records and ``{"ok": true, "device":
@@ -64,6 +81,7 @@ last two lines are the kernel records and ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -105,6 +123,12 @@ TOPK_FRAC, CHUNK = 0.05, 256
 MAIN_TOPK = 53_540
 WIRE = {None: 4_283_176, "int8": 1_087_526, "topk:0.05+int8": 268_540}
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# The fault plane: the reference's bench_faults plan and mitigations.
+FAULT_PLAN = dict(seed=7, straggler_frac=0.2, straggler_slowdown=8.0,
+                  crash_prob=0.05, permanent_frac=0.2, outage_prob=0.1,
+                  outage_len=5)
+FAULT_TASK = dict(overschedule_factor=2.0, quorum_frac=0.5,
+                  collect_deadline=2.0)
 # The serve path at full width: SmolLM-360M (its published shape, bf16),
 # 8 prompts of 1,024 tokens, 32 new tokens; 8 teacher-forced decode steps
 # held against the plain versions.
@@ -140,7 +164,14 @@ def card() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    phase(1, f"card: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    phase(1, f"card: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+             f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
+             f"defaults: matmul allow_tf32 "
+             f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+             f"precision {torch.get_float32_matmul_precision()!r}, cudnn "
+             f"allow_tf32 {torch.backends.cudnn.allow_tf32}, deterministic "
+             f"{torch.backends.cudnn.deterministic}, benchmark "
+             f"{torch.backends.cudnn.benchmark}")
 
 
 def build() -> None:
@@ -261,60 +292,98 @@ def chunk_kernel_vs_plain() -> None:
           "chunk params finite")
     check(dp <= 1e-4, f"chunk params kernel vs plain {dp} <= 1e-4")
     check(dq <= 1e-3, f"chunk q kernel vs plain {dq} <= 1e-3")
-    phase(4, f"round chunk S={S} K={K} CIFAR_CNN (TF32 off for matmul and "
-             f"cuDNN): kernel vs plain aggregate max |dparams| {dp:.3e} "
+    phase(4, f"round chunk S={S} K={K} CIFAR_CNN (full f32: matmul default, "
+             f"cuDNN pinned by the library): kernel vs plain aggregate max "
+             f"|dparams| {dp:.3e} "
              f"(tol 1e-4), max |dq| {dq:.3e} (tol 1e-3), masks equal")
 
 
-def service_loop(**kwargs):
-    """``run_fl_experiment("cifar", "type2", data_plane="device", ...)`` on
-    the card with every launch count set to 0 just before and read just
-    after. Returns the result, the wall time, the service loop's own time
-    (``lifecycle.drain``: stage 2, training, reputation, without the data
-    generation and staging around it), the launch counts, and each
-    round's returned-client count as ``DeviceFLSim.collect`` reported it."""
-    from repro_torch.core import lifecycle
-    from repro_torch.fl.simulation import DeviceFLSim, run_fl_experiment
-    from repro_torch.kernels import ops
-    drain, collect = lifecycle.drain, DeviceFLSim.collect
-    loop_s, arrived = [], []
+@contextlib.contextmanager
+def recording():
+    """Record every round as a trainer hands it to the lifecycle, on
+    both planes: a list of ``(arrival or None, returned, q)``, before the
+    lifecycle's own host-side masking."""
+    from repro_torch.fl.simulation import DeviceFLSim, FLClassificationSim
+    rounds, pending = [], []
+    dispatch, collect = DeviceFLSim.dispatch_rounds, DeviceFLSim.collect
+    call = FLClassificationSim.__call__
 
-    def timed_drain(*args, **kw):
-        t = time.perf_counter()
-        result = drain(*args, **kw)
-        torch.cuda.synchronize()
-        loop_s.append(time.perf_counter() - t)
-        return result
+    def rec_dispatch(self, start, subsets, weights, arrivals=None):
+        pending.extend([None] * len(subsets) if arrivals is None
+                       else list(arrivals))
+        return dispatch(self, start, subsets, weights, arrivals)
 
-    def counted_collect(self, handles):
+    def rec_collect(self, handles):
         out = collect(self, handles)
-        arrived.extend(int(mask.sum()) for mask, _, _ in out)
+        for returned, q, _ in out:
+            rounds.append((pending.pop(0), returned, q))
         return out
 
-    lifecycle.drain, DeviceFLSim.collect = timed_drain, counted_collect
+    def rec_call(self, rnd, subset, weights, arrival=None):
+        out = call(self, rnd, subset, weights, arrival=arrival)
+        rounds.append((arrival, out[0], out[1]))
+        return out
+
+    DeviceFLSim.dispatch_rounds, DeviceFLSim.collect = rec_dispatch, rec_collect
+    FLClassificationSim.__call__ = rec_call
+    try:
+        yield rounds
+    finally:
+        DeviceFLSim.dispatch_rounds, DeviceFLSim.collect = dispatch, collect
+        FLClassificationSim.__call__ = call
+
+
+def service_loop(**kwargs):
+    """``run_fl_experiment("cifar", "type2", ...)`` with 100 clients and
+    subsets of 10 +- 3 on the card, every launch count set to 0 just
+    before and read just after; ``kwargs`` go to the call (the plane is
+    its default, the host loop, unless they name one). Returns the
+    result, the wall time, the service loop's own time
+    (``lifecycle.drain``: stage 2, training, reputation, without the data
+    generation and staging around it), the launch counts, each round's
+    returned-client count as the trainer reported it, the trainer, and
+    the recorded rounds of :func:`recording`."""
+    from repro_torch.core import lifecycle
+    from repro_torch.fl.simulation import run_fl_experiment
+    from repro_torch.kernels import ops
+    drain = lifecycle.drain
+    loop_s, trainers = [], []
+
+    def timed_drain(provider, state, trainer, **kw):
+        t = time.perf_counter()
+        result = drain(provider, state, trainer, **kw)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t)
+        trainers.append(trainer)
+        return result
+
+    lifecycle.drain = timed_drain
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        out = run_fl_experiment("cifar", "type2", n_clients=100,
-                                subset_size=10, subset_delta=3,
-                                data_plane="device", round_chunk=8, **kwargs)
+        with recording() as rounds:
+            out = run_fl_experiment("cifar", "type2", n_clients=100,
+                                    subset_size=SUBSET_N,
+                                    subset_delta=SUBSET_DELTA, **kwargs)
         torch.cuda.synchronize()
     finally:
-        lifecycle.drain, DeviceFLSim.collect = drain, collect
+        lifecycle.drain = drain
     wall = time.perf_counter() - t0
     check(len(loop_s) == 1, "one service loop per run")
-    return out, wall, loop_s[0], dict(ops.LAUNCHES), arrived
+    arrived = [int(np.sum(returned)) for _, returned, _ in rounds]
+    return (out, wall, loop_s[0], dict(ops.LAUNCHES), arrived, trainers[0],
+            rounds)
 
 
 def slice_run() -> tuple[int, float]:
     """Phase 5; returns the kernel's launches and ms per round."""
     from repro_torch.core import fairness
     rounds = 24
-    out, wall, loop_s, counts, _ = service_loop(rounds=rounds,
-                                                n_train=50_000,
-                                                n_test=10_000)
+    out, wall, loop_s, counts, *_ = service_loop(
+        rounds=rounds, n_train=50_000, n_test=10_000, data_plane="device",
+        round_chunk=8)
     launches = counts["fedavg_agg_quality"]
     hist, state = out["history"], out["state"]
     trained = len(hist)
@@ -383,6 +452,7 @@ def timing(fleet) -> dict:
              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mv(U.T, w) (agg "
              f"only) {mv_ms:.4f} ms; bound {out['fedavg_agg_quality']['bound_ms']:.4f} ms "
              f"({nbytes} B, {flops} flop)"]
+    lines += agg_timing(u, w, mv_ms, out, g)
 
     # segmented_topk on the fleet's masked ratio (8 x 131,072, k = 4,096)
     x, k = fleet["ratio"], FLEET_K
@@ -420,6 +490,38 @@ def timing(fleet) -> dict:
              "products of swiglu and flash_attention): "
              + " | ".join(lines))
     return out
+
+
+def agg_timing(u, w, mv_ms, out, g) -> list[str]:
+    """``fedavg_agg`` at the fused kernel's shape and over the 8 CIFAR_CNN
+    leaves at K = 13 (what one host-loop round launches), beside the
+    byte bound and ``torch.mv(U.T, w)``, the one PyTorch call that
+    computes the same sum. Fills ``out`` and returns the phase-6 lines."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import cnn
+    K, P = MAIN_K, MAIN_P
+    t = {"ms": time_ms(lambda: ops.fedavg_agg(u, w)),
+         "plain_ms": time_ms(lambda: ref.fedavg_agg_ref(u, w)),
+         "library_ms": mv_ms, **bound(4 * (K * P + K + P), 2 * K * P)}
+    leaves = {n: torch.randn((K,) + shape, generator=g, device="cuda")
+              for n, shape in cnn.param_shapes(cnn.CIFAR_CNN).items()}
+    sizes = [v[0].numel() for v in leaves.values()]
+    flat = [v.reshape(K, -1) for v in leaves.values()]
+    t["per_round_8_leaves"] = {
+        "ms": time_ms(lambda: ops.fedavg_agg_tree(leaves, w)),
+        "plain_ms": time_ms(lambda: ops.PLAIN.fedavg_agg_tree(leaves, w)),
+        "library_ms": time_ms(lambda: [torch.mv(f.T, w) for f in flat]),
+        **bound(sum(4 * (K * n + K + n) for n in sizes),
+                sum(2 * K * n for n in sizes))}
+    out["fedavg_agg"] = t
+    r = t["per_round_8_leaves"]
+    return [f"fedavg_agg K={K} P={P} f32: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, torch.mv(U.T, w) {mv_ms:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})",
+            f"fedavg_agg over the 8 CIFAR_CNN leaves at K={K} (P {sizes}): "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, 8 "
+            f"torch.mv {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})"]
 
 
 def compression_timing(u, w, out) -> list[str]:
@@ -946,9 +1048,10 @@ def compressed_loop(base_ms: float) -> dict:
     for comp, opt, per_round in CODEC_RUNS:
         # FedAdam's step is about lr per coordinate: lr 0.01 (Reddi et al.)
         sim = SimConfig(server_lr=0.01) if opt else SimConfig()
-        out, wall, loop_s, counts, arrived = service_loop(
+        out, wall, loop_s, counts, arrived, *_ = service_loop(
             rounds=rounds, n_train=10_000, n_test=2_000, sim=sim,
-            compression=comp, server_opt=opt)
+            compression=comp, server_opt=opt, data_plane="device",
+            round_chunk=8)
         hist = out["history"]
         trained = len(hist)
         losses = [h["loss"] for h in hist]
@@ -981,18 +1084,13 @@ def compressed_loop(base_ms: float) -> dict:
 
 def none_is_uncompressed() -> None:
     """Phase 13: ``compression="none"`` gives the uncompressed chunk's
-    params bit for bit (cuDNN held to deterministic algorithms here, and
-    the uncompressed chunk run twice to show the card repeats)."""
+    params bit for bit (the uncompressed chunk run twice to show the card
+    repeats, under the library's own cuDNN pin)."""
     from repro_torch.fl.round import make_fl_rounds_scan
     loss, dd, sched, params, key, kw = cifar_chunk()
-    det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        runs = [make_fl_rounds_scan(loss, compression=c, **kw)(
-            params, dd, sched, key) for c in (None, None, "none")]
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = det
+    runs = [make_fl_rounds_scan(loss, compression=c, **kw)(
+        params, dd, sched, key) for c in (None, None, "none")]
+    torch.cuda.synchronize()
     (p0, i0), (p1, _), (p2, i2) = runs
     check(all(torch.equal(p0[n], p1[n]) for n in p0),
           "the uncompressed chunk repeats bit for bit")
@@ -1252,6 +1350,277 @@ def serve_entry_point() -> None:
               + f"; first row {out[0, :8].tolist()}")
 
 
+def agg_kernel_vs_plain() -> float:
+    """Phase 17: ``fedavg_agg`` against its plain version, f32 and bf16.
+    Returns max |err| at the fused kernel's shape in f32."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(17)
+    main_err, n = None, 0
+    Ks, Ps = (1, 3, MAIN_K, 64, 100), (1, 10, 255, 256, 257, 16_385,
+                                       1_048_576, MAIN_P)
+    for dtype in (torch.float32, torch.bfloat16):
+        for K in Ks:
+            for P in Ps:
+                u = torch.randn(K, P, generator=g, device="cuda").to(dtype)
+                w = torch.rand(K, generator=g, device="cuda")
+                w = w / w.sum()
+                got = ops.fedavg_agg(u, w)
+                exp = ref.fedavg_agg_ref(u, w)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and got.shape == (P,),
+                      f"fedavg_agg K={K} P={P} {dtype}: dtype and shape")
+                rtol, atol = TOL[dtype]
+                torch.testing.assert_close(got.float(), exp.float(),
+                                           rtol=rtol, atol=atol)
+                if dtype == torch.float32 and (K, P) == (MAIN_K, MAIN_P):
+                    main_err = float((got - exp).abs().max())
+                    check(torch.equal(got, ops.fedavg_agg(u, w)),
+                          "fedavg_agg repeats bit for bit")
+                n += 1
+    phase(17, f"fedavg_agg vs plain: {n} cases (K in {Ks}; P in {Ps}; f32 "
+              f"and bf16) within f32 rtol 1e-5 / bf16 rtol 2^-7 (one bf16 "
+              f"ulp); max |err| at K={MAIN_K} P={MAIN_P} f32: "
+              f"{main_err:.3e}; repeat bit-identical")
+    return main_err
+
+
+def host_plane(base_ms: float) -> int:
+    """Phase 18: the host-loop plane at CIFAR_CNN width through its entry
+    point, then the rounds that launch ``fedavg_agg`` on the same data at
+    K = 13, each held against ``kernels=ops.PLAIN``. Returns the kernel's
+    launches."""
+    from repro_torch import random as trandom
+    from repro_torch.core import fairness
+    from repro_torch.fl import device_data
+    from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
+    from repro_torch.fl.simulation import FLClassificationSim, SimConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    rounds = 24
+    out, wall, loop_s, counts, _, trainer, _ = service_loop(
+        rounds=rounds, n_train=50_000, n_test=10_000)
+    check(isinstance(trainer, FLClassificationSim),
+          "run_fl_experiment's default plane is the host loop")
+    hist, state = out["history"], out["state"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == rounds, f"{len(hist)} host rounds trained, asked "
+          f"{rounds}")
+    check(all(np.isfinite(losses)), "host plane: finite losses")
+    check(0.0 <= out["final_accuracy"] <= 1.0, "accuracy in [0, 1]")
+    check(not any(counts.values()), "the host plane's default round (the "
+          f"reference's: plain aggregate) launches no kernel: {counts}")
+    rep = fairness.fairness_report(state.schedules[0], sorted(state.pool),
+                                   x_star=3)
+    check(rep["coverage"] and rep["bounded"],
+          "host plane: first period's schedule covers the pool within x*")
+    host_ms = loop_s / rounds * 1e3
+
+    # the same data, 8 rounds at K = 13 through the kernel and the plain
+    sim = SimConfig(eval_every=10 ** 9)          # no eval inside rounds 1-8
+    host = FLClassificationSim(cnn.CIFAR_CNN, trainer.data, trainer.parts,
+                               trainer.test, sim, device="cuda")
+    p0 = host.params
+    rng = np.random.default_rng(18)
+    S = 8
+    subsets = [sorted(rng.choice(100, MAIN_K, replace=False).tolist())
+               for _ in range(S)]
+    weights = [x / x.sum() for x in rng.random((S, MAIN_K))]
+    loss = lambda p, b: cnn.loss_fn(cnn.CIFAR_CNN, p, b)
+    kw = dict(local_lr=sim.local_lr, local_steps=sim.local_steps,
+              server_lr=sim.server_lr, use_agg_kernel=True)
+
+    def host_rounds(kernels):
+        host.params = p0
+        host.round_fn = make_fl_round(loss, kernels=kernels, **kw)
+        res = host.run_rounds(1, subsets, weights)
+        torch.cuda.synchronize()
+        return host.params, np.stack([q for _, q, _ in res])
+
+    dd = device_data.DeviceDataset.stage(trainer.data, trainer.parts, "cuda")
+    sched = {"rows": torch.as_tensor(np.array(subsets), device="cuda"),
+             "weights": torch.as_tensor(np.array(weights, np.float32),
+                                        device="cuda"),
+             "active": torch.ones(S, MAIN_K, device="cuda"),
+             "round_ids": torch.arange(1, S + 1, device="cuda")}
+    skw = dict(local_lr=sim.local_lr, local_steps=sim.local_steps,
+               batch_size=sim.batch_size, server_lr=sim.server_lr,
+               dropout_rate=sim.dropout_rate, fused_quality=False,
+               use_agg_kernel=True)
+
+    def scan_rounds(kernels):
+        p, info = make_fl_rounds_scan(loss, kernels=kernels, **skw)(
+            p0, dd, sched, trandom.prng_key(sim.seed, "cuda"))
+        torch.cuda.synchronize()
+        return p, info["q_values"].cpu().numpy()
+
+    launches, gaps = {}, {}
+    for name, drive in (("make_fl_round", host_rounds),
+                        ("make_fl_rounds_scan", scan_rounds)):
+        for n in ops.LAUNCHES:
+            ops.LAUNCHES[n] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pk, qk = drive(ops)
+        dt = time.perf_counter() - t
+        launches[name] = {n: c for n, c in ops.LAUNCHES.items() if c}
+        check(launches[name] == {"fedavg_agg": 8 * S},
+              f"{name}(use_agg_kernel=True): launches {launches[name]} == "
+              f"8 a round over {S} rounds")
+        pp, qp = drive(ops.PLAIN)
+        check(all(bool(torch.isfinite(v).all()) for v in pk.values()),
+              f"{name}: finite params")
+        dp = max(float((pk[n] - pp[n]).abs().max()) for n in pk)
+        dq = float(np.abs(qk - qp).max())
+        check(dp <= 1e-4, f"{name}: params kernel vs plain {dp} <= 1e-4")
+        check(dq <= 1e-3, f"{name}: q kernel vs plain {dq} <= 1e-3")
+        gaps[name] = (dp, dq, dt / S * 1e3, pk)
+    dhs = max(float((gaps["make_fl_round"][3][n]
+                     - gaps["make_fl_rounds_scan"][3][n]).abs().max())
+              for n in p0)
+    phase(18, f"host-loop plane (run_fl_experiment's default), CIFAR_CNN, "
+              f"pool {len(state.pool)}, {rounds} rounds at n_train 50,000: "
+              f"loss first {losses[0]:.4f} last {losses[-1]:.4f}, final "
+              f"accuracy {out['final_accuracy']:.4f}; wall {wall:.2f} s, "
+              f"service loop {loop_s:.2f} s = {host_ms:.1f} ms/round (device "
+              f"plane, phase 5: {base_ms:.1f}); no kernel launched (the "
+              f"reference's host round aggregates plainly) | on the same "
+              f"data, {S} rounds at K={MAIN_K} with use_agg_kernel=True: "
+              + "; ".join(f"{k}: fedavg_agg launches "
+                          f"{launches[k].get('fedavg_agg', 0)} (8 a round), "
+                          f"{g_[2]:.1f} ms/round, kernel vs plain max |dparams| "
+                          f"{g_[0]:.3e} (tol 1e-4), max |dq| {g_[1]:.3e} (tol "
+                          f"1e-3)" for k, g_ in gaps.items())
+              + f"; host-assembled vs device-gathered rounds max |dparams| "
+                f"{dhs:.3e}")
+    return sum(c.get("fedavg_agg", 0) for c in launches.values())
+
+
+def fault_plane() -> None:
+    """Phase 19: the reference's bench_faults plan on both planes, 16
+    rounds each at CIFAR_CNN width."""
+    from repro_torch.core import FaultPlan
+    lines = []
+    for plane in ("host", "device"):
+        out, wall, loop_s, _, _, _, rounds = service_loop(
+            rounds=16, n_train=10_000, n_test=2_000, data_plane=plane,
+            fault_plan=FaultPlan(**FAULT_PLAN), **FAULT_TASK)
+        events = out["state"].rounds
+        check(len(events) == len(rounds) == 16,
+              f"{plane}: 16 rounds committed and trained, got "
+              f"{len(events)} / {len(rounds)}")
+        late = 0
+        for ev, (arrival, returned, q) in zip(events, rounds):
+            m = ev.metrics
+            check("round_latency" in m, f"{plane}: round_latency reported")
+            base = m["n_scheduled"] // 2             # over-scheduled x2
+            quorum = max(1, int(np.ceil(FAULT_TASK["quorum_frac"] * base)))
+            check(m["n_arrived"] >= quorum,
+                  f"{plane}: round {m['round']} met its quorum")
+            a = np.asarray(arrival, dtype=bool)
+            check(not np.asarray(returned)[~a].any()
+                  and (np.asarray(q)[~a] == 0).all(),
+                  f"{plane}: a client that missed the close has b_t = 0, q = 0")
+            check(int(a.sum()) == m["n_arrived"], f"{plane}: arrivals")
+            late += int((~a).sum())
+        check(late > 0, f"{plane}: some client missed a close")
+        lat = [ev.metrics["round_latency"] for ev in events]
+        lines.append(f"{plane}: {len(events)} rounds, {late} late or failed "
+                     f"client slots, round_latency {min(lat):.3f}-"
+                     f"{max(lat):.3f}, loss last "
+                     f"{out['history'][-1]['loss']:.4f}, service loop "
+                     f"{loop_s / len(events) * 1e3:.1f} ms/round")
+    phase(19, f"fault plane, FaultPlan({FAULT_PLAN}) with {FAULT_TASK}, "
+              f"n_train 10,000: every round met its quorum, and the trainer "
+              f"returned b_t = 0 and q = 0 for every client that missed the "
+              f"close | " + " | ".join(lines))
+
+
+def library_settings() -> tuple[float, float]:
+    """Phase 20: what a caller gets with no flag set: each plane twice
+    and with ``FaultPlan()`` from one seed, bit for bit; then a chunk
+    timed with the library's cuDNN pin and with PyTorch's defaults in its
+    place. Returns (pinned, unpinned) ms per round."""
+    from repro_torch.core import FaultPlan
+    import repro_torch.fl.round as fl_round
+    flags = lambda: (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    before = flags()
+    for plane in ("device", "host"):
+        runs = []
+        for plan in (None, None, FaultPlan()):
+            out, *_, trainer, _ = service_loop(
+                rounds=8, n_train=10_000, n_test=2_000, data_plane=plane,
+                fault_plan=plan)
+            runs.append((trainer.params, out["history"], out["final_accuracy"],
+                         [e.metrics for e in out["state"].rounds]))
+        same = lambda a, b: (all(torch.equal(a[0][n], b[0][n]) for n in a[0])
+                             and a[1:] == b[1:])
+        check(same(runs[0], runs[1]),
+              f"{plane}: two runs from one seed give bit-equal params and "
+              f"history")
+        check(same(runs[0], runs[2]),
+              f"{plane}: FaultPlan() gives the no-plan run bit for bit")
+        check(all("round_latency" not in m for m in runs[2][3]),
+              f"{plane}: the inactive plan takes the no-fault path")
+    check(flags() == before, f"caller's cuDNN flags untouched: {flags()}")
+
+    loss, dd, sched, params, key, kw = cifar_chunk()
+    S = sched["rows"].shape[0]
+    fn = fl_round.make_fl_rounds_scan(loss, **kw)
+    pin = fl_round.conv_numerics
+
+    def run(pinned: bool) -> float:
+        fl_round.conv_numerics = pin if pinned else contextlib.nullcontext
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(params, dd, sched, key)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / S * 1e3
+        finally:
+            fl_round.conv_numerics = pin
+
+    run(True), run(False)                        # warm-up
+    times = {True: [], False: []}
+    for order in ((True, False), (False, True)) * 3:
+        for pinned in order:
+            times[pinned].append(run(pinned))
+    pinned_ms = statistics.median(times[True])
+    default_ms = statistics.median(times[False])
+    with pin():
+        inside = (torch.backends.cudnn.allow_tf32,
+                  getattr(getattr(torch.backends.cudnn, "conv", None),
+                          "fp32_precision", "n/a"))
+    # the pin's effect on a conv of conv2's shape: its error from an f64
+    # conv, pinned (full f32) and at PyTorch's defaults (TF32 allowed)
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn(64, 32, 16, 16, generator=g, device="cuda")
+    wt = torch.randn(64, 32, 3, 3, generator=g, device="cuda")
+    exact = F.conv2d(x.double(), wt.double(), padding=1)
+    with pin():
+        err_pin = float((F.conv2d(x, wt, padding=1) - exact).abs().max())
+    err_default = float((F.conv2d(x, wt, padding=1) - exact).abs().max())
+    top = float(exact.abs().max())
+    check(err_pin <= 1e-5 * top, f"pinned conv is full f32: max |err| "
+          f"{err_pin} <= 1e-5 x max |out| {top}")
+    phase(20, f"library settings, no flag set by the caller (cudnn "
+              f"allow_tf32, deterministic, benchmark = {before}, unchanged "
+              f"after): device and host planes, 8 rounds at n_train 10,000, "
+              f"run twice and with FaultPlan() from seed 0: params, history "
+              f"and final accuracy bit-equal; inside the pin cudnn "
+              f"allow_tf32 {inside[0]}, conv fp32_precision {inside[1]!r}; "
+              f"a (64, 32, 16, 16) x 3x3x32x64 conv against f64: max |err| "
+              f"pinned {err_pin:.3e}, at the defaults {err_default:.3e} "
+              f"(max |out| {top:.1f}); "
+              f"a device-plane chunk (S={S}, K={MAIN_K}, CIFAR_CNN), median "
+              f"of 6 alternated: pinned (full f32, deterministic) "
+              f"{pinned_ms:.2f} ms/round, PyTorch's defaults (TF32, free "
+              f"algorithms) {default_ms:.2f} ms/round")
+    return pinned_ms, default_ms
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1262,8 +1631,6 @@ def main() -> int:
     card()
     build()
     err = kernel_vs_plain()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     chunk_kernel_vs_plain()
     launches, base_ms = slice_run()
     fleet = fleet_pool()
@@ -1278,11 +1645,18 @@ def main() -> int:
     errs.update(serve_kernels_vs_plain())
     serve_launches = serve_full_width()
     serve_entry_point()
+    agg_err = agg_kernel_vs_plain()
+    agg_launches = host_plane(base_ms)
+    fault_plane()
+    library_settings()
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",
                "src/repro/kernels/fedavg_agg.py:91", launches, err,
                t["fedavg_agg_quality"]),
+        record("fedavg_agg", csrc + "fedavg_agg.cu",
+               "src/repro/kernels/fedavg_agg.py:40", agg_launches, agg_err,
+               t["fedavg_agg"]),
         record("segmented_topk", csrc + "segmented_topk.cu",
                "src/repro/kernels/segmented_topk.py:62", topk_launches,
                errs["segmented_topk"], t["segmented_topk"]),

@@ -18,9 +18,14 @@ plus the device selection plane in torch:
   ``dispatch`` / ``collect`` / ``drain``) with reputation updates from
   the quality cosines (``reputation``); ``service`` is the provider
   facade; ``placement`` maps tenants onto device indices.
+- ``faults`` is the seeded counter-based fault plan (stragglers,
+  crashes, departures, outages) that the lifecycle's fault mode reads
+  from a trainer; ``workload`` / ``driver`` / ``telemetry`` are the
+  online harness: arrival, availability and device-speed traces, a
+  virtual-clock ``OnlineDriver`` replaying them against a live
+  ``ServiceScheduler``, and SLA telemetry.
 
-Not ported yet (ROADMAP.md Queue 1): checkpoint files, fault injection
-and the online workload harness.
+Not ported yet (ROADMAP.md Queue 1): checkpoint files.
 """
 from .criteria import (CRITERIA, NUM_CRITERIA, ClientProfile, build_profiles,
                        cosine_similarity, data_dist_score, linear_cost, nid,
@@ -29,6 +34,7 @@ from .criteria import (CRITERIA, NUM_CRITERIA, ClientProfile, build_profiles,
 from .device_pool import DevicePoolState
 from .fairness import (bounded_participation, coverage, fairness_report,
                        jain_index, over_selection_fraction)
+from .faults import FaultPlan, RoundOutcome
 from .lifecycle import (AsyncTrainer, InFlightError, PendingChunk,
                         RejectedTask, RoundEvent, ServiceScheduler,
                         ServiceState, TaskPhase, TaskState, Trainer,
@@ -53,6 +59,10 @@ from .selection import (SelectionResult, budget_floor, select_dp,
                         select_initial_pool, select_random,
                         select_score_prop, threshold_filter)
 from .service import FLServiceProvider, RoundLog, ServiceRunResult, TaskRequest
+from .workload import (ArrivalTrace, DeviceSpeedProfile, DiurnalAvailability,
+                       HeterogeneousFaultPlan, WorkloadTrace, make_workload)
+from .driver import OnlineDriver
+from .telemetry import TelemetryEvent, TelemetryLog
 
 __all__ = [
     "CRITERIA", "NUM_CRITERIA", "ClientPoolState", "ClientProfile",
@@ -78,4 +88,8 @@ __all__ = [
     "TaskState", "Trainer", "apply_pool_selection", "as_run_result",
     "collect", "dispatch", "drain", "resolve_trainer",
     "single_round_adapter", "step", "submit",
+    "FaultPlan", "RoundOutcome",
+    "ArrivalTrace", "DeviceSpeedProfile", "DiurnalAvailability",
+    "HeterogeneousFaultPlan", "OnlineDriver", "TelemetryEvent",
+    "TelemetryLog", "WorkloadTrace", "make_workload",
 ]

@@ -1194,9 +1194,8 @@ class RejectedTask:
     object echoed back (resubmitting it later is exactly equivalent to
     the original submit), and ``queued`` is the INTAKE backlog depth at
     rejection time — a congestion signal for sizing the retry backoff.
-    An online harness can requeue rejected tasks from this echo alone
-    (the reference's ``OnlineDriver``, not ported yet: ROADMAP.md
-    Queue 1 item 5)."""
+    The online driver (:class:`repro_torch.core.driver.OnlineDriver`)
+    requeues rejected tasks from this echo alone."""
 
     task: TaskRequest
     reason: str

@@ -105,15 +105,28 @@ def gather_batches(data: DeviceDataset, rows, pos_u):
     return {"images": imgs, "labels": labs}
 
 
-def dropout_mask(mask_u, active, dropout_rate: float):
+def dropout_mask(mask_u, active, dropout_rate: float, arrival=None):
     """Per-round client dropout mask (K,) f32.
 
     A client drops when its uniform < dropout_rate. ``active`` (K,) f32
     marks real (non-padding) slots. If every active client would drop,
     slot 0 is kept (schedules place real clients first).
+
+    ``arrival`` (K,) f32, when given, also masks the clients that had not
+    reported by the round's collect close (the lifecycle's fault mode):
+    a client that did not arrive can neither contribute nor be the
+    fallback, so the fallback becomes the first arrived active slot (and
+    no slot when none arrived; the lifecycle dispatches only rounds that
+    met their quorum). With ``arrival=None`` the computation is the
+    no-fault one.
     """
     act = active > 0
-    fallback = (torch.arange(mask_u.shape[0], device=mask_u.device) == 0) & act
+    slots = torch.arange(mask_u.shape[0], device=mask_u.device)
+    if arrival is None:
+        fallback = (slots == 0) & act
+    else:
+        act = act & (arrival > 0)
+        fallback = (slots == torch.argmax(act.to(torch.int32))) & act
     keep = (mask_u >= dropout_rate) & act
     keep = torch.where(keep.any(), keep, fallback)
     return keep.to(torch.float32)

@@ -1,29 +1,38 @@
 """End-to-end FL simulation: glues the core service lifecycle
 (selection/scheduling, ``core.lifecycle``) to real PyTorch training
 (fl.round) over partitioned synthetic data — the machinery behind the
-paper's Figs. 5/6 experiments.
+paper's Figs. 5/6 experiments. Two trainers implement the lifecycle's
+``Trainer`` protocol:
 
-:class:`DeviceFLSim` is the device-resident data plane: the partitioned
-dataset is staged on the device once (fl.device_data.DeviceDataset) and
-``run_rounds`` drives S rounds per call through the chunk function
-(fl.round.make_fl_rounds_scan) with on-device batch gather, dropout
-masks, and the fused aggregation + quality kernel, optionally from
-compressed client updates (``compression``) and with a FedAdam/FedYogi
-server step (``server_opt``). It is an
-``AsyncTrainer``: ``dispatch_rounds`` enqueues the chunk's work on the
-device and returns tensors the host has not waited for, ``collect``
-blocks.
+- :class:`FLClassificationSim` is the host-loop data plane (the
+  reference's default): every round assembles the client batches on the
+  host (numpy indexing per client), ships them to the device and runs
+  one ``fl.round.make_fl_round`` call. A plain sync ``Trainer``.
+- :class:`DeviceFLSim` is the device-resident data plane: the
+  partitioned dataset is staged on the device once
+  (fl.device_data.DeviceDataset) and ``run_rounds`` drives S rounds per
+  call through the chunk function (fl.round.make_fl_rounds_scan) with
+  on-device batch gather, dropout masks, and the fused aggregation +
+  quality kernel, optionally from compressed client updates
+  (``compression``) and with a FedAdam/FedYogi server step
+  (``server_opt``). An ``AsyncTrainer``: ``dispatch_rounds`` enqueues
+  the chunk's work on the device and returns tensors the host has not
+  waited for, ``collect`` blocks.
+
+Both carry an optional :class:`repro_torch.core.faults.FaultPlan`
+(``fault_plan=``), which switches the lifecycle into its fault mode;
+they then take each round's arrival mask and mask the clients that did
+not report out of the aggregate.
 
 Batch positions and dropout come from the same slot-keyed counter-based
 stream as the JAX package's (:mod:`repro_torch.random`), so with the
-same seed and parameters both see identical schedules, masks and
-batches.
+same seed and parameters both planes, and both packages, see identical
+schedules, masks and batches.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without CUDA they raise. Pass ``device="cpu"`` to run on the CPU.
 
-Not ported yet (ROADMAP.md Queue 1): the host-loop trainer
-``FLClassificationSim``, fault plans, the mesh-sharded scan, device
+Not ported yet (ROADMAP.md Queue 1): the mesh-sharded scan, device
 placement and trainer checkpoints.
 """
 from __future__ import annotations
@@ -41,10 +50,10 @@ from repro_torch.core import (ClientPoolState, FLServiceProvider, TaskRequest,
 from repro_torch.core.criteria import (NUM_CRITERIA, data_dist_score,
                                        linear_cost, overall_score)
 from repro_torch.data.synthetic import ClassificationData
-from repro_torch.device import resolve_device
+from repro_torch.device import conv_numerics, resolve_device
 from repro_torch.fl import device_data
 from repro_torch.fl.partition import client_histograms
-from repro_torch.fl.round import make_fl_rounds_scan
+from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
 from repro_torch.models import cnn
 
 
@@ -81,8 +90,9 @@ class _EvalCache:
     history bookkeeping live in one place."""
 
     def _init_eval(self, model_cfg: cnn.CNNConfig, test: ClassificationData,
-                   sim: SimConfig):
+                   sim: SimConfig, impl: str = "reference"):
         self.sim = sim
+        self._eval_impl = impl
         self._test_images = torch.as_tensor(np.asarray(test.images),
                                             device=self.device)
         self._test_labels = torch.as_tensor(np.asarray(test.labels, np.int64),
@@ -100,7 +110,9 @@ class _EvalCache:
         idx = torch.as_tensor(self._eval_rng.choice(m, size=min(n, m),
                                                     replace=False),
                               device=self.device)
-        logits = cnn.forward(self.cfg, params, self._test_images[idx])
+        with conv_numerics():
+            logits = cnn.forward(self.cfg, params, self._test_images[idx],
+                                 impl=self._eval_impl)
         return (logits.argmax(-1) == self._test_labels[idx]).to(
             torch.float32).mean()
 
@@ -119,6 +131,99 @@ class _EvalCache:
                                    else float(accuracy))
         self.history.append(metrics)
         return metrics
+
+
+class FLClassificationSim(_EvalCache):
+    """Federated CNN training over a partitioned synthetic dataset: the
+    host-loop data plane. Each round draws its batch positions and
+    dropout from the slot-keyed stream on the device, copies the draws
+    to the host, assembles the client batches there with the reference's
+    numpy index arithmetic, ships them to the device and runs one
+    ``make_fl_round`` call.
+
+    Implements the ``core.lifecycle.Trainer`` protocol: ``run_rounds``
+    runs a chunk one round at a time (so chunking changes nothing but
+    the grouping of trainer calls); ``run_fl_experiment`` drives it with
+    ``round_chunk = 1``. ``device=None`` runs on ``cuda`` and raises
+    without it; parameters are drawn as :class:`DeviceFLSim` draws them.
+    """
+
+    # the lifecycle's fault mode may pass per-round arrival masks
+    accepts_arrivals = True
+
+    def __init__(self, model_cfg: cnn.CNNConfig, data: ClassificationData,
+                 parts: list[np.ndarray], test: ClassificationData,
+                 sim: SimConfig = SimConfig(), fault_plan=None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = model_cfg
+        self.data = data
+        self.parts = parts
+        self.test = test
+        self.fault_plan = fault_plan
+        self.base_key = trandom.prng_key(sim.seed, self.device)
+        self.params = cnn.init_params(
+            model_cfg, torch.Generator().manual_seed(sim.seed), self.device)
+        self.round_fn = make_fl_round(
+            lambda p, b: cnn.loss_fn(model_cfg, p, b),
+            local_lr=sim.local_lr, local_steps=sim.local_steps,
+            server_lr=sim.server_lr)
+        self._init_eval(model_cfg, test, sim)
+
+    # -- batching -----------------------------------------------------------
+    def _round_draws(self, rnd: int, K: int):
+        """The round's slot-keyed draws: ``mask_u`` (K,) on the device,
+        ``pos_u`` (K, E, b) f32 copied to the host."""
+        mask_u, pos_u = device_data.sample_positions(
+            self.base_key, rnd, K, self.sim.local_steps, self.sim.batch_size)
+        return mask_u, pos_u.cpu().numpy()
+
+    def _client_batches(self, subset, pos_u):
+        E, b = self.sim.local_steps, self.sim.batch_size
+        imgs, labs = [], []
+        for i, cid in enumerate(subset):
+            idx = self.parts[cid]
+            pos = np.minimum((pos_u[i] * len(idx)).astype(np.int64),
+                             len(idx) - 1)
+            take = idx[pos.reshape(-1)]
+            imgs.append(self.data.images[take].reshape(
+                E, b, *self.data.images.shape[1:]))
+            labs.append(self.data.labels[take].reshape(E, b))
+        return {"images": torch.as_tensor(np.stack(imgs), device=self.device),
+                "labels": torch.as_tensor(np.stack(labs).astype(np.int64),
+                                          device=self.device)}
+
+    # -- core.lifecycle.Trainer protocol -------------------------------------
+    def __call__(self, rnd: int, subset, weights, arrival=None) -> tuple:
+        K = len(subset)
+        dev = self.device
+        mask_u, pos_u = self._round_draws(rnd, K)
+        arr = None if arrival is None else torch.as_tensor(
+            np.asarray(arrival, dtype=np.float32), device=dev)
+        mask = device_data.dropout_mask(
+            mask_u, torch.ones(K, device=dev), self.sim.dropout_rate,
+            arrival=arr)
+        batches = self._client_batches(subset, pos_u)
+        self.params, info = self.round_fn(
+            self.params, batches,
+            torch.as_tensor(np.asarray(weights, dtype=np.float32), device=dev),
+            mask)
+        metrics = self._record(rnd, info["mean_loss"])
+        return (mask.cpu().numpy() > 0, info["q_values"].cpu().numpy(),
+                metrics)
+
+    def run_rounds(self, start_round: int, subsets: Sequence[Sequence[int]],
+                   weights: Sequence[np.ndarray],
+                   arrivals: Sequence[np.ndarray] | None = None
+                   ) -> list[tuple]:
+        """Sequential host loop over the chunk (one round call a round)."""
+        return [self(start_round + j, subset, np.asarray(w),
+                     arrival=None if arrivals is None else arrivals[j])
+                for j, (subset, w) in enumerate(zip(subsets, weights))]
+
+    @property
+    def trainer(self):
+        """The object itself (callable per round and a ``Trainer``)."""
+        return self
 
 
 class DeviceFLSim(_EvalCache):
@@ -148,6 +253,13 @@ class DeviceFLSim(_EvalCache):
     Both default off, and then the rounds are those of the uncompressed
     plane.
 
+    ``impl`` is the CNN's lowering (models.cnn: ``"auto"`` is cuDNN on
+    the card and im2col on the CPU); ``fused_quality=False`` takes the
+    two-pass aggregate and quality path of fl.round. ``fault_plan``
+    attaches a :class:`repro_torch.core.faults.FaultPlan`; under an
+    active plan the lifecycle hands ``dispatch_rounds`` the rounds'
+    arrival masks, which ride the schedule as ``"arrival"``.
+
     ``device=None`` runs on ``cuda`` and raises without it. Parameters
     are drawn from ``torch.Generator().manual_seed(sim.seed)``; to start
     from the reference's parameters, assign
@@ -161,15 +273,16 @@ class DeviceFLSim(_EvalCache):
     # segmentation DP splits a chunk to avoid padding waste)
     DISPATCH_COST = 4.0
 
+    # the lifecycle's fault mode may pass per-round arrival masks
+    accepts_arrivals = True
+
     def __init__(self, model_cfg: cnn.CNNConfig, data: ClassificationData,
                  parts: list[np.ndarray], test: ClassificationData,
-                 sim: SimConfig = SimConfig(),
-                 pad_subset_to: int | None = None, fault_plan=None,
+                 sim: SimConfig = SimConfig(), impl: str = "auto",
+                 pad_subset_to: int | None = None,
+                 fused_quality: bool = True, fault_plan=None,
                  compression: str | None = None,
                  server_opt: str | None = None, mesh=None, device=None):
-        if fault_plan is not None:
-            raise NotImplementedError("fault plans are not ported yet: "
-                                      "ROADMAP.md Queue 1 item 5")
         if mesh is not None:
             if compression is not None or server_opt is not None:
                 raise ValueError("mesh-sharded DeviceFLSim supports the "
@@ -179,6 +292,7 @@ class DeviceFLSim(_EvalCache):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.pad_subset_to = pad_subset_to
+        self.fault_plan = fault_plan
         self.base_key = trandom.prng_key(sim.seed, self.device)
         self.params = cnn.init_params(
             model_cfg, torch.Generator().manual_seed(sim.seed), self.device)
@@ -188,12 +302,12 @@ class DeviceFLSim(_EvalCache):
             else self._server_opt.init(self.params)
         self.data = device_data.DeviceDataset.stage(data, parts, self.device)
         self.chunk_fn = make_fl_rounds_scan(
-            lambda p, b: cnn.loss_fn(model_cfg, p, b),
+            lambda p, b: cnn.loss_fn(model_cfg, p, b, impl=impl),
             local_lr=sim.local_lr, local_steps=sim.local_steps,
             batch_size=sim.batch_size, server_lr=sim.server_lr,
-            dropout_rate=sim.dropout_rate, compression=compression,
-            server_opt=self._server_opt)
-        self._init_eval(model_cfg, test, sim)
+            dropout_rate=sim.dropout_rate, fused_quality=fused_quality,
+            compression=compression, server_opt=self._server_opt)
+        self._init_eval(model_cfg, test, sim, impl=impl)
 
     def _k_pad(self, k: int) -> int:
         """Padded client axis for a segment whose largest subset has k
@@ -243,10 +357,8 @@ class DeviceFLSim(_EvalCache):
         ending at an eval round, its accuracy evaluation) is issued
         back-to-back. Chunks are split after every eval round and per
         the padding-vs-call-cost DP (``_segment``); ``run_rounds`` is
-        ``collect`` of this."""
-        if arrivals is not None:
-            raise NotImplementedError("fault-mode arrival masks are not "
-                                      "ported yet: ROADMAP.md Queue 1 item 5")
+        ``collect`` of this. ``arrivals`` (the lifecycle's fault mode)
+        holds each round's (k,) arrival mask."""
         handles = []
         seg_start = 0
         for e in range(len(subsets)):
@@ -257,7 +369,9 @@ class DeviceFLSim(_EvalCache):
                 for length in self._segment([len(s) for s in block]):
                     handles.append(self._enqueue_segment(
                         r, subsets[seg_start:seg_start + length],
-                        weights[seg_start:seg_start + length]))
+                        weights[seg_start:seg_start + length],
+                        None if arrivals is None
+                        else arrivals[seg_start:seg_start + length]))
                     r += length
                     seg_start += length
         return handles
@@ -293,28 +407,37 @@ class DeviceFLSim(_EvalCache):
 
     def _enqueue_segment(self, start_round: int,
                          subsets: Sequence[Sequence[int]],
-                         weights: Sequence[np.ndarray]) -> tuple:
+                         weights: Sequence[np.ndarray],
+                         arrivals: Sequence[np.ndarray] | None = None
+                         ) -> tuple:
         """One chunk call for ``len(subsets)`` consecutive rounds;
         returns ``(start_round, subsets, info, eval_acc)`` with ``info``
         (and ``eval_acc``, when the segment ends at an eval round) still
         on the device. The eval is enqueued here, against this segment's
-        output params."""
+        output params. Only fault-mode segments carry ``"arrival"`` in
+        the schedule, so the no-fault rounds are untouched."""
         S = len(subsets)
         K = self._k_pad(max(len(s) for s in subsets))
         rows = np.zeros((S, K), dtype=np.int64)
         w = np.zeros((S, K), dtype=np.float32)
         active = np.zeros((S, K), dtype=np.float32)
+        arr = None if arrivals is None \
+            else np.zeros((S, K), dtype=np.float32)
         for t, (subset, wt) in enumerate(zip(subsets, weights)):
             k = len(subset)
             rows[t, :k] = np.asarray(subset, dtype=np.int64)
             w[t, :k] = np.asarray(wt, dtype=np.float32)
             active[t, :k] = 1.0
+            if arr is not None:
+                arr[t, :k] = np.asarray(arrivals[t], dtype=np.float32)
         dev = self.device
         schedule = {"rows": torch.as_tensor(rows, device=dev),
                     "weights": torch.as_tensor(w, device=dev),
                     "active": torch.as_tensor(active, device=dev),
                     "round_ids": torch.arange(start_round, start_round + S,
                                               dtype=torch.int64, device=dev)}
+        if arr is not None:
+            schedule["arrival"] = torch.as_tensor(arr, device=dev)
         if self._server_opt is None:
             self.params, info = self.chunk_fn(self.params, self.data,
                                               schedule, self.base_key)
@@ -327,13 +450,23 @@ class DeviceFLSim(_EvalCache):
             eval_acc = self._enqueue_eval(self.params)
         return start_round, list(subsets), info, eval_acc
 
+    # -- per-round TrainerFn protocol (round_chunk == 1) ---------------------
+    def __call__(self, rnd: int, subset, weights) -> tuple:
+        return self.run_rounds(rnd, [subset], [np.asarray(weights)])[0]
+
+    @property
+    def trainer(self):
+        """The object itself: a chunk-capable ``core.lifecycle.Trainer``,
+        also callable per round."""
+        return self
+
 
 def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
                       rounds: int = 30, scheduler: str = "mkp",
                       n_train: int = 6000, n_test: int = 1500,
                       subset_size: int = 10, subset_delta: int = 3,
                       sim: SimConfig = SimConfig(),
-                      seed: int = 0, data_plane: str = "device",
+                      seed: int = 0, data_plane: str = "host",
                       round_chunk: int = 8,
                       budget: float = 1e9, n_star: int | None = None,
                       selection_policy: str | None = None,
@@ -346,15 +479,15 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
                       device=None) -> dict:
     """One learning-curve run (paper Figs. 5/6): returns history + config.
 
-    ``data_plane="device"`` (the default, and the only plane ported)
-    stages the dataset on the device and runs ``round_chunk`` rounds per
-    call through the chunk function; the host-loop plane (``"host"``) is
-    not ported yet and raises.
+    ``data_plane="host"`` (the default, as in the reference) runs the
+    host-loop trainer, one round a call (``round_chunk`` is forced to
+    1); ``"device"`` stages the dataset on the device and runs
+    ``round_chunk`` rounds per call through the chunk function.
 
     ``compression`` (a spec of fl.compression, also recorded on the
     ``TaskRequest``) and ``server_opt`` (``"fedadam"``/``"fedyogi"``)
     turn on the compressed update plane and the FedOpt server step; the
-    round metrics then carry ``"bytes"``.
+    round metrics then carry ``"bytes"``. Both need the device plane.
 
     ``selection_policy`` / ``scheduling_policy`` pick registered
     ``core.policy`` strategies; unset (``None``), the legacy
@@ -362,17 +495,22 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
     ``n_star`` defaults to ``n_clients`` when the budget is
     unconstrained (the paper's full-pool setup) and to 1 otherwise.
 
+    ``fault_plan`` (a :class:`repro_torch.core.faults.FaultPlan`) injects
+    deterministic stragglers, crashes and outages;
+    ``overschedule_factor`` / ``quorum_frac`` / ``collect_deadline`` are
+    the matching ``TaskRequest`` mitigations. All default off, and an
+    inactive plan gives the no-fault run bit for bit.
+
     ``device=None`` runs on ``cuda`` and raises without it.
     """
     from repro_torch.data.synthetic import make_classification_data
     from repro_torch.fl.partition import partition_labels
 
-    if data_plane == "host":
-        raise NotImplementedError("the host-loop data plane is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 3; use "
-                                  "data_plane='device'")
-    if data_plane != "device":
+    if data_plane not in ("host", "device"):
         raise ValueError(f"unknown data_plane {data_plane!r}")
+    if data_plane == "host" and (compression or server_opt):
+        raise ValueError("compression/server_opt need the device "
+                         "data plane (data_plane='device')")
     device = resolve_device(device)
     # one generation pass -> shared class prototypes; split train/test
     full = make_classification_data(kind, n_train + n_test, seed=seed)
@@ -384,10 +522,15 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
                                seed=seed)
     provider = FLServiceProvider(pool)
     model_cfg = cnn.MNIST_CNN if kind == "mnist" else cnn.CIFAR_CNN
-    simul = DeviceFLSim(model_cfg, data, parts, test, sim,
-                        pad_subset_to=subset_size + subset_delta,
-                        fault_plan=fault_plan, compression=compression,
-                        server_opt=server_opt, device=device)
+    if data_plane == "device":
+        simul = DeviceFLSim(model_cfg, data, parts, test, sim,
+                            pad_subset_to=subset_size + subset_delta,
+                            fault_plan=fault_plan, compression=compression,
+                            server_opt=server_opt, device=device)
+    else:
+        simul = FLClassificationSim(model_cfg, data, parts, test, sim,
+                                    fault_plan=fault_plan, device=device)
+        round_chunk = 1
 
     if n_star is None:
         n_star = n_clients if budget >= 1e9 else 1
@@ -402,7 +545,7 @@ def run_fl_experiment(kind: str, noniid: str, n_clients: int = 100,
                        collect_deadline=collect_deadline,
                        compression=compression)
     state = lifecycle.submit(provider, task)
-    state, _ = lifecycle.drain(provider, state, simul,
+    state, _ = lifecycle.drain(provider, state, simul.trainer,
                                stop_fn=lambda m: m["round"] + 1 >= rounds)
     result = lifecycle.as_run_result(state)
     return {"history": simul.history, "service": result, "state": state,

@@ -11,7 +11,12 @@ through the kernel; set an entry to 0 to start a count.
   is bandwidth-bound: it must read U (K, P) once and write agg (P,), so
   its bound is (K + 1)·P·itemsize bytes over the card's memory rate —
   about 18 µs at the main path's K = 13, P = 1,070,794 (f32) on an H100
-  SXM's 3.35 TB/s. The service loop launches it once per round.
+  SXM's 3.35 TB/s. The device plane launches it once per round.
+- ``fedavg_agg`` replaces ``src/repro/kernels/fedavg_agg.py::fedavg_agg``
+  (line 40): the aggregate alone, with the same bound.
+  ``fedavg_agg_tree`` maps it over the leaves of stacked parameters, so
+  the host-loop round (``fl.round.make_fl_round(use_agg_kernel=True)``)
+  launches it once per leaf, 8 times a round for the CNN.
 - ``segmented_topk`` replaces ``src/repro/kernels/segmented_topk.py``
   (line 62): the per-shard frontier of the fleet-scale stage 1, launched
   once per frontier (per task, and again per escalation).
@@ -31,6 +36,7 @@ the plain versions, to hold it against the kernels.
 """
 from __future__ import annotations
 
+import functools
 import types
 
 import torch
@@ -44,10 +50,27 @@ from . import rmsnorm as _rmsnorm
 from . import segmented_topk as _segmented_topk
 from . import swiglu as _swiglu
 
-LAUNCHES = {"fedavg_agg_quality": 0, "segmented_topk": 0, "mkp_utility": 0,
-            "topk_sparsify": 0, "quantize_i8": 0, "dequantize_i8": 0,
-            "fedavg_agg_quality_i8": 0, "rmsnorm": 0, "swiglu": 0,
-            "flash_attention": 0}
+LAUNCHES = {"fedavg_agg": 0, "fedavg_agg_quality": 0, "segmented_topk": 0,
+            "mkp_utility": 0, "topk_sparsify": 0, "quantize_i8": 0,
+            "dequantize_i8": 0, "fedavg_agg_quality_i8": 0, "rmsnorm": 0,
+            "swiglu": 0, "flash_attention": 0}
+
+
+def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Σ_k p_k u_k of updates (K, P) with weights (K,), in updates.dtype,
+    summed in f32; see :func:`repro_torch.kernels.ref.fedavg_agg_ref`."""
+    if updates.device.type == "cpu":
+        return ref.fedavg_agg_ref(updates, weights)
+    out = _fedavg_agg.fedavg_agg(updates, weights)
+    LAUNCHES["fedavg_agg"] += 1
+    return out
+
+
+def fedavg_agg_tree(stacked: dict[str, torch.Tensor],
+                    weights: torch.Tensor) -> dict[str, torch.Tensor]:
+    """:func:`fedavg_agg` of every leaf of stacked parameters (leaves
+    (K, ...)), one call per leaf."""
+    return _fedavg_agg.fedavg_agg_tree(stacked, weights, agg=fedavg_agg)
 
 
 def fedavg_agg_quality(updates: torch.Tensor, weights: torch.Tensor):
@@ -184,6 +207,9 @@ flash_attention_bshd.__doc__ = (
 
 
 PLAIN = types.SimpleNamespace(
+    fedavg_agg=ref.fedavg_agg_ref,
+    fedavg_agg_tree=functools.partial(_fedavg_agg.fedavg_agg_tree,
+                                      agg=ref.fedavg_agg_ref),
     fedavg_agg_quality=ref.fedavg_agg_quality_ref,
     topk_sparsify=ref.topk_sparsify_ref,
     quantize_i8=ref.quantize_i8_ref,
@@ -194,7 +220,8 @@ PLAIN = types.SimpleNamespace(
     flash_attention=ref.flash_attention_ref,
     flash_attention_bshd=bshd(ref.flash_attention_ref))
 
-__all__ = ["LAUNCHES", "PLAIN", "bshd", "dequantize_i8", "fedavg_agg_quality",
+__all__ = ["LAUNCHES", "PLAIN", "bshd", "dequantize_i8", "fedavg_agg",
+           "fedavg_agg_quality", "fedavg_agg_tree",
            "fedavg_agg_quality_i8", "flash_attention", "flash_attention_bshd",
            "mkp_utility", "quantize_i8", "rmsnorm", "segmented_topk",
            "swiglu", "topk_sparsify"]

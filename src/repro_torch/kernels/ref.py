@@ -11,6 +11,14 @@ from __future__ import annotations
 import torch
 
 
+def fedavg_agg_ref(updates: torch.Tensor, weights: torch.Tensor):
+    """The paper's aggregation Δ_t = Σ_k p_k Δ_t^(k): updates (K, P),
+    weights (K,) -> (P,) in updates.dtype, both cast to f32 and
+    accumulated in f32."""
+    agg = weights.to(torch.float32) @ updates.to(torch.float32)
+    return agg.to(updates.dtype)
+
+
 def fedavg_agg_quality_ref(updates: torch.Tensor, weights: torch.Tensor):
     """Fused aggregation + quality.
 

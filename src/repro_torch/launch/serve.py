@@ -32,8 +32,9 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
     ``prompt_len`` tokens (numpy ``default_rng(seed)``, as the reference
     draws them) with random weights drawn from ``torch.Generator`` seeded
     with ``seed`` on the device. Returns the tokens, (batch, new_tokens)
-    int32. Non-greedy sampling draws from a generator seeded with
-    ``seed + 1``."""
+    int32. The first token is the argmax of the prefill logits either
+    way, as in the reference; with ``greedy=False`` the decode steps
+    sample, from a generator seeded with ``seed + 1``."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(get_config(arch).reduced(), use_kernels=True)
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed))
@@ -43,9 +44,9 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
                               dtype=torch.int32, device=dev)
     sampler = torch.Generator(dev).manual_seed(seed + 1)
 
-    def pick(logits):
+    def pick(logits, sample):
         last = logits[:, -1].to(torch.float32)
-        if greedy:
+        if not sample:
             return last.argmax(-1, keepdim=True).to(torch.int32)
         return torch.multinomial(torch.softmax(last, -1), 1,
                                  generator=sampler).to(torch.int32)
@@ -53,7 +54,7 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
     t0 = time.perf_counter()
     logits, cache, memory = T.prefill(cfg, params, prompts)
     cache = T.grow_cache(cfg, cache, extra=new_tokens)
-    tok = pick(logits)
+    tok = pick(logits, sample=False)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     out = [tok]
@@ -61,7 +62,7 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
     for step in range(new_tokens - 1):
         logits, cache = T.decode_step(cfg, params, tok, cache,
                                       prompt_len + step, memory=memory)
-        tok = pick(logits)
+        tok = pick(logits, sample=not greedy)
         out.append(tok)
     tokens = torch.cat(out, dim=1)
     _sync(dev)

@@ -2,8 +2,22 @@
 (1x28x28) and CIFAR-like (3x32x32) data (paper §VIII), in PyTorch.
 
 Two conv blocks (3x3 SAME conv, ReLU, 2x2 max-pool) and two dense
-layers, as in the JAX package's ``models.cnn`` with
-``impl="reference"``.
+layers, as in the JAX package's ``models.cnn``. ``forward`` and
+``loss_fn`` take its ``impl`` argument, which picks the lowering:
+
+- ``"reference"`` (the default): ``F.conv2d`` and ``F.max_pool2d``,
+  which cuDNN runs on the card;
+- ``"fast"``: the same math lowered as the reference's ``"fast"``: each
+  3x3 conv as nine shifted slices and one matmul (im2col), and the 2x2
+  pool as a reshape and a max (``amax``, whose gradient splits evenly
+  between tied maxima as JAX's ``max`` does);
+- ``"auto"``: what the reference means by it, the tuned native path on
+  the accelerator and ``"fast"`` off it. The reference resolves it to
+  ``"reference"`` on a TPU, where XLA's native convolution is the tuned
+  one, and to ``"fast"`` elsewhere, because XLA's CPU convolution and
+  its pool gradient are slow. On the card the tuned native path is
+  cuDNN, so here ``"auto"`` is ``"reference"`` for a CUDA tensor and
+  ``"fast"`` for a CPU tensor.
 
 The public surface keeps the JAX layout, so parameters and images
 carry across unchanged: images are NHWC, conv weights HWIO, dense
@@ -109,20 +123,55 @@ def _conv_block(x, w, b):
     return F.max_pool2d(y, 2)
 
 
-def forward(cfg: CNNConfig, params, images):
+def _conv_im2col(x, w):
+    """NHWC x, HWIO w: 3x3 SAME conv as nine shifted slices and one
+    matmul, the patches ordered (row, column, channel) as w's first
+    three axes."""
+    B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = [xp[:, i:i + H, j:j + W, :] for i in range(3) for j in range(3)]
+    patches = torch.cat(cols, dim=-1).reshape(B * H * W, 9 * C)
+    return (patches @ w.reshape(9 * C, -1)).reshape(B, H, W, -1)
+
+
+def _pool_reshape(y):
+    """NHWC 2x2 VALID max-pool as a reshape and a max (odd trailing rows
+    and columns dropped, as VALID windows drop them)."""
+    B, H, W, C = y.shape
+    y = y[:, :H - H % 2, :W - W % 2, :]
+    return y.reshape(B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """``"auto"`` -> ``"reference"`` on CUDA (cuDNN), ``"fast"`` elsewhere."""
+    if impl == "auto":
+        return "reference" if device.type == "cuda" else "fast"
+    if impl not in ("reference", "fast"):
+        raise ValueError(f"unknown cnn impl {impl!r}")
+    return impl
+
+
+def forward(cfg: CNNConfig, params, images, impl: str = "reference"):
     """images: (B, H, W, C) -> logits (B, num_classes)."""
-    x = images.permute(0, 3, 1, 2)                       # NHWC -> NCHW
-    x = _conv_block(x, params["conv1.w"], params["conv1.b"])
-    x = _conv_block(x, params["conv2.w"], params["conv2.b"])
-    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)    # flatten (H, W, C)
+    if resolve_impl(impl, images.device) == "fast":
+        x = images
+        for layer in ("conv1", "conv2"):
+            x = _pool_reshape(F.relu(_conv_im2col(x, params[f"{layer}.w"])
+                                     + params[f"{layer}.b"]))
+        x = x.reshape(x.shape[0], -1)                    # flatten (H, W, C)
+    else:
+        x = images.permute(0, 3, 1, 2)                   # NHWC -> NCHW
+        x = _conv_block(x, params["conv1.w"], params["conv1.b"])
+        x = _conv_block(x, params["conv2.w"], params["conv2.b"])
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten (H, W, C)
     x = F.relu(x @ params["fc1.w"] + params["fc1.b"])
     return x @ params["fc2.w"] + params["fc2.b"]
 
 
-def loss_fn(cfg: CNNConfig, params, batch):
+def loss_fn(cfg: CNNConfig, params, batch, impl: str = "reference"):
     """batch: images (B,H,W,C), labels (B,), weights optional (B,).
     Returns ``(loss, {"loss", "accuracy"})``."""
-    logits = forward(cfg, params, batch["images"])
+    logits = forward(cfg, params, batch["images"], impl=impl)
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, 1, batch["labels"][:, None])[:, 0]
     w = batch.get("weights")

@@ -14,7 +14,10 @@ sum and division as the plain version does. So are the codec kernels
 ``topk_sparsify`` (values and indices), ``quantize_i8`` (values and
 scales; one correctly rounded f32 operation a step) and
 ``dequantize_i8``; ``fedavg_agg_quality_i8`` is held as
-``fedavg_agg_quality`` in f32. A compressed round chunk through the
+``fedavg_agg_quality`` in f32. ``fedavg_agg`` sums each column's K
+terms in one fixed order with fmaf, the plain version through a matmul:
+f32 within rtol 1e-5 / atol 1e-5 (K up to 3,000), bf16 within one bf16
+ulp. A compressed round chunk through the
 kernels against the same chunk through ``kernels.ops.PLAIN``: masks and
 bytes exact; the first round's payloads are equal and only the f32 sums
 of the aggregate differ, so a later round may move an int8 value by a
@@ -50,7 +53,7 @@ from repro_torch.data.synthetic import make_classification_data
 from repro_torch.fl import device_data
 from repro_torch.fl.compression import CompressionSpec, bytes_per_client
 from repro_torch.fl.partition import partition_labels
-from repro_torch.fl.round import make_fl_rounds_scan
+from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
 from repro_torch.kernels import compression as kcomp
 from repro_torch.kernels import fedavg_agg, mkp_utility, ops, ref
 from repro_torch.kernels import flash_attention as kflash
@@ -104,6 +107,116 @@ def test_kernel_refuses_k_above_max(cuda):
     with pytest.raises(ValueError, match="K <="):
         ops.fedavg_agg_quality(u, torch.ones(fedavg_agg.MAX_K + 1,
                                              device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# fedavg_agg, and the rounds that launch it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,P", [(1, 1), (3, 10), (13, 255), (13, 256),
+                                 (13, 257), (64, 16_385), (100, 4097),
+                                 (13, 1_070_794), (7, 1_048_576),
+                                 (2100, 33), (3000, 1000)])
+def test_fedavg_agg_kernel_matches_plain(cuda, K, P, dtype):
+    """K past row 1's 64 and past the 2,048 weights staged at once."""
+    g = torch.Generator(device=cuda).manual_seed(K * 131 + P)
+    u = torch.randn(K, P, generator=g, device=cuda).to(dtype)
+    w = torch.rand(K, generator=g, device=cuda)
+    w = w / w.sum()
+    before = ops.LAUNCHES["fedavg_agg"]
+    got = ops.fedavg_agg(u, w)
+    assert ops.LAUNCHES["fedavg_agg"] == before + 1
+    exp = ref.fedavg_agg_ref(u, w)
+    assert got.dtype == dtype and got.shape == (P,)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), exp.float(), rtol=rtol, atol=1e-5)
+    assert torch.equal(got, ops.fedavg_agg(u, w))
+    # a base one element past an alignment takes the scalar loads and
+    # gives the same sums
+    buf = torch.empty(K * P + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(K, P)
+    shifted.copy_(u)
+    assert fedavg_agg.vector_width(shifted) == 1
+    assert torch.equal(ops.fedavg_agg(shifted, w), got)
+
+
+def test_fedavg_agg_kernel_refuses_bad_inputs(cuda):
+    u = torch.ones(4, 8, device=cuda)
+    w = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fedavg_agg.fedavg_agg(u.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        fedavg_agg.fedavg_agg(torch.ones(8, 4, device=cuda).T, w)
+    with pytest.raises(ValueError, match=r"\(K,\)"):
+        fedavg_agg.fedavg_agg(u, torch.ones(5, device=cuda))
+    with pytest.raises(ValueError, match="K >= 1"):
+        fedavg_agg.fedavg_agg(torch.ones(0, 8, device=cuda),
+                              torch.ones(0, device=cuda))
+
+
+def cifar_round_inputs(cuda, K=13, E=2, b=16, seed=0):
+    data = make_classification_data("cifar", 600, seed=seed)
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 600, size=(K, E, b))
+    batches = {"images": torch.as_tensor(data.images[idx], device=cuda),
+               "labels": torch.as_tensor(data.labels[idx].astype(np.int64),
+                                         device=cuda)}
+    w = torch.as_tensor(rng.random(K).astype(np.float32), device=cuda)
+    mask = torch.ones(K, device=cuda)
+    mask[2] = 0.0
+    params = cnn.init_params(cnn.CIFAR_CNN, torch.Generator().manual_seed(seed),
+                             cuda)
+    return batches, w, mask, params
+
+
+def test_host_round_launches_fedavg_agg_per_leaf(cuda):
+    """``make_fl_round(use_agg_kernel=True)`` at CIFAR_CNN width launches
+    the kernel once per leaf (8) and agrees with the plain round."""
+    batches, w, mask, params = cifar_round_inputs(cuda)
+    loss = lambda p, b: cnn.loss_fn(cnn.CIFAR_CNN, p, b)
+    before = dict(ops.LAUNCHES)
+    pk, ik = make_fl_round(loss, local_lr=0.1, use_agg_kernel=True)(
+        params, batches, w, mask)
+    counts = {n: ops.LAUNCHES[n] - before[n] for n in before}
+    pp, ip = make_fl_round(loss, local_lr=0.1, use_agg_kernel=True,
+                           kernels=ops.PLAIN)(params, batches, w, mask)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in counts.items() if c} == {"fedavg_agg": 8}
+    for n in pk:
+        torch.testing.assert_close(pk[n], pp[n], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ik["q_values"], ip["q_values"], rtol=0,
+                               atol=1e-5)
+    assert float(ik["q_values"][2]) == 0.0
+
+
+def test_device_chunk_repeats_under_the_library_pin(cuda):
+    """Two identical chunks give bit-equal params and metrics with the
+    caller's cuDNN flags at PyTorch's defaults (TF32 allowed, algorithms
+    free), which the library leaves as it found them."""
+    assert torch.backends.cudnn.allow_tf32 and \
+        not torch.backends.cudnn.deterministic
+    data = make_classification_data("cifar", 800, seed=3)
+    parts = partition_labels(data.labels, 16, "type2", 10, seed=3)
+    dd = device_data.DeviceDataset.stage(data, parts, cuda)
+    S, K = 2, 13
+    rows = torch.as_tensor(np.stack([np.random.default_rng(t).choice(
+        16, K, replace=False) for t in range(S)]), device=cuda)
+    sched = {"rows": rows, "weights": torch.full((S, K), 1 / K, device=cuda),
+             "active": torch.ones(S, K, device=cuda),
+             "round_ids": torch.arange(S, device=cuda)}
+    params = cnn.init_params(cnn.CIFAR_CNN, torch.Generator().manual_seed(3),
+                             cuda)
+    loss = lambda p, b: cnn.loss_fn(cnn.CIFAR_CNN, p, b, impl="auto")
+    fn = make_fl_rounds_scan(loss, local_lr=0.1, local_steps=2, batch_size=16,
+                             dropout_rate=0.1)
+    (pa, ia), (pb, ib) = (fn(params, dd, sched, trandom.prng_key(3, cuda))
+                          for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(pa[n], pb[n]) for n in pa)
+    assert all(torch.equal(ia[k], ib[k]) for k in ia)
+    assert torch.backends.cudnn.allow_tf32 and \
+        not torch.backends.cudnn.deterministic
 
 
 # ---------------------------------------------------------------------------

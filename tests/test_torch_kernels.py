@@ -4,7 +4,8 @@ in interpret mode; and the dispatching wrappers' CPU behaviour. The
 CUDA kernels themselves are held against the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
-- ``fedavg_agg_quality`` over ragged K x P in f32 and bf16;
+- ``fedavg_agg_quality`` and ``fedavg_agg`` over ragged K x P in f32
+  and bf16;
 - ``segmented_topk`` over the shape sweep of tests/test_scale_plane.py
   and at small C, with lowest-lane ties and -inf padding: exact (values
   and lanes of every finite entry);
@@ -33,6 +34,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.fedavg_agg import fedavg_agg as pallas_agg
 from repro.kernels.fedavg_agg import fedavg_agg_quality as pallas_agg_quality
 from repro_torch.kernels import (build, fedavg_agg, mkp_utility, ops, ref,
                                  segmented_topk)
@@ -114,6 +116,58 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         fedavg_agg.fedavg_agg_quality(ut, wt)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("K,P", SHAPES + [(100, 257), (130, 10)])
+def test_fedavg_agg_plain_matches_oracle_and_pallas(K, P, dtype):
+    ut, wt, uj, wj = inputs(K, P, dtype, seed=3)
+    got = ref.fedavg_agg_ref(ut, wt)
+    assert got.dtype == DTYPES[dtype][0] and got.shape == (P,)
+    agg_rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for oracle in (jref.fedavg_agg_ref(uj, wj),
+                   pallas_agg(uj, wj, block_p=64, interpret=True)):
+        np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                                   np.asarray(oracle, np.float32),
+                                   rtol=agg_rtol, atol=1e-5)
+    # the aggregate of the fused pass is the same sum
+    torch.testing.assert_close(got, ref.fedavg_agg_quality_ref(ut, wt)[0],
+                               rtol=0, atol=0)
+
+
+def test_fedavg_agg_ops_cpu_take_plain_path_and_count_nothing():
+    ut, wt, _, _ = inputs(4, 96, "float32", seed=4)
+    before = ops.LAUNCHES["fedavg_agg"]
+    assert torch.equal(ops.fedavg_agg(ut, wt), ref.fedavg_agg_ref(ut, wt))
+    tree = {"a.w": ut.reshape(4, 8, 12), "a.b": ut[:, :5]}
+    for fn in (ops.fedavg_agg_tree, ops.PLAIN.fedavg_agg_tree):
+        out = fn(tree, wt)
+        assert out["a.w"].shape == (8, 12) and out["a.b"].shape == (5,)
+        assert torch.equal(out["a.w"].reshape(-1), ref.fedavg_agg_ref(ut, wt))
+        assert torch.equal(out["a.b"], ref.fedavg_agg_ref(ut[:, :5], wt))
+    assert ops.LAUNCHES["fedavg_agg"] == before
+    assert ops.PLAIN.fedavg_agg is ref.fedavg_agg_ref
+
+
+def test_fedavg_agg_kernel_refuses_cpu_tensors():
+    ut, wt, _, _ = inputs(2, 10, "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        fedavg_agg.fedavg_agg(ut, wt)
+    with pytest.raises(ValueError, match="CUDA"):
+        fedavg_agg.fedavg_agg_tree({"x": ut}, wt)
+
+
+@pytest.mark.parametrize("dtype,P,vec", [
+    (torch.float32, 1_070_794, 2), (torch.float32, 1_048_576, 4),
+    (torch.float32, 10, 2), (torch.float32, 255, 1),
+    (torch.bfloat16, 1_070_794, 2), (torch.bfloat16, 864, 8),
+    (torch.bfloat16, 12, 4), (torch.bfloat16, 7, 1)])
+def test_fedavg_agg_vector_width_divides_rows(dtype, P, vec):
+    """Each thread of the aggregate kernel loads the widest vector (16
+    bytes at most) that divides P and the base, so no load straddles a
+    client's row."""
+    u = torch.empty(3, P, dtype=dtype)
+    assert fedavg_agg.vector_width(u) == vec
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -126,7 +180,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_compiles_every_source_into_one_library():
     names = [p.name for p in build.sources()]
-    assert names == sorted(["fedavg_agg_quality.cu", "flash_attention.cu",
+    assert names == sorted(["fedavg_agg.cu", "fedavg_agg_quality.cu",
+                            "flash_attention.cu",
                             "mkp_utility.cu", "quantize_i8.cu",
                             "rmsnorm.cu", "segmented_topk.cu", "swiglu.cu"])
     assert build._lib_path().parent == build.BUILD_DIR

@@ -100,6 +100,19 @@ def test_serve_is_seeded():
     assert int(s1.min()) >= 0 and int(s1.max()) < 512
 
 
+def test_sampling_starts_from_the_prefill_argmax():
+    """As in the reference, ``greedy=False`` samples only the decode
+    steps: the first token is the argmax of the prefill logits. (The
+    later tokens differ from the reference's by design: torch's
+    generator is not JAX's.)"""
+    kw = dict(batch=4, prompt_len=8, new_tokens=4, seed=2, verbose=False,
+              device="cpu")
+    greedy = S.serve("smollm-360m", greedy=True, **kw)
+    sampled = S.serve("smollm-360m", greedy=False, **kw)
+    assert torch.equal(sampled[:, 0], greedy[:, 0])
+    assert not torch.equal(sampled, greedy), "the decode steps sample"
+
+
 def test_serve_runs_a_windowed_dense_arch():
     """StarCoder2 (LayerNorm, GELU, no SwiGLU) through the same stack."""
     out = S.serve("starcoder2-15b", batch=1, prompt_len=8, new_tokens=3,

@@ -135,19 +135,16 @@ def test_entry_points_default_to_cuda():
 
 def test_unported_paths_raise():
     """What this port still cuts raises, naming its ROADMAP item: the
-    host-loop plane, fault plans and arrival masks, the mesh, checkpoint
-    files. A mesh with compression or a server optimizer is refused as
-    the reference refuses it. Compression and server optimizers alone
-    build a trainer."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulation.run_fl_experiment("mnist", "type2", data_plane="host",
-                                     device="cpu")
+    mesh and the checkpoint files. A mesh with compression or a server
+    optimizer is refused as the reference refuses it. Compression and
+    server optimizers alone build a trainer. (The host-loop plane, fault
+    plans and arrival masks run: tests/test_torch_host_plane.py and
+    tests/test_torch_faults.py.)"""
     data = make_classification_data("mnist", 40, seed=0)
     parts = partition_labels(data.labels, 4, "type2", 10, seed=0)
-    for kw in ({"fault_plan": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
-                                   device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
+                               device="cpu", mesh=object())
     for kw in ({"compression": "int8"}, {"server_opt": "fedadam"}):
         with pytest.raises(ValueError, match="mesh"):
             simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
@@ -156,11 +153,10 @@ def test_unported_paths_raise():
                                  device="cpu", compression="topk:0.1+int8",
                                  server_opt="fedyogi")
     assert sorted(sim.opt_state) == ["count", "m", "v"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sim.dispatch_rounds(0, [[0, 1]], [np.array([0.5, 0.5])],
-                            arrivals=[np.ones(2)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lifecycle.save_state("unused", None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lifecycle.load_state("unused")
 
 
 _IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
@@ -190,6 +186,8 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.models.layers, repro_torch.launch.serve\n"
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.swiglu\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.core.faults, repro_torch.core.workload\n"
+        "import repro_torch.core.driver, repro_torch.core.telemetry\n"
         "repro_torch.configs.all_configs()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
