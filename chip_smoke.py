@@ -19,7 +19,8 @@ plain PyTorch version. Phases, one line each:
    the card with launch counts set to 0 just before and read just after;
 6. each kernel, its plain version and its library yardstick timed with
    CUDA events (median of 20 replays of a CUDA graph of 10 back-to-back
-   calls) at the shapes its path gives it, beside the kernel's bound;
+   calls) at the shapes its path gives it, beside the kernel's bound
+   (``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's prefill shapes);
 7. ``segmented_topk`` and ``mkp_utility`` against their plain versions on
    the card (ties, -inf padding, k up to C, ragged n and m): exact;
 8. the fleet intake: four tasks through
@@ -71,10 +72,25 @@ plain PyTorch version. Phases, one line each:
 20. what a library caller gets, with no flag set by the caller: each
     plane run twice and with an inactive ``FaultPlan()`` from one seed,
     params and history bit-equal; a device-plane chunk timed with the
-    library's cuDNN pin and with PyTorch's defaults in its place.
+    library's cuDNN pin and with PyTorch's defaults in its place;
+21. ``mlstm_scan`` against its plain version on the card, output and
+    final state, normalized (mLSTM) and SSD, f32 and bf16: at the two
+    full-width serve shapes, the reference's sweep, ragged S, odd and
+    largest widths, from an initial state, and through strided
+    (B, S, H, d) views;
+22. the SSM serve path at full width: xLSTM-125M (12 layers, sLSTM at 3
+    and 7), bf16, random weights from a seed, 4 prompts of 2,048 tokens
+    and 32 new tokens, as phase 15: launches exactly 10 ``mlstm_scan``
+    and 32 ``rmsnorm``, logits against ``kernels=ops.PLAIN`` held to the
+    bf16 path's own distance from f32;
+23. the same for Hymba-1.5B (32 layers, windowed attention beside the
+    mamba heads): 32 / 32 / 1,024 / 2,080 launches of mlstm_scan /
+    flash_attention / swiglu / rmsnorm;
+24. the entry points ``serve("xlstm-125m")`` and ``serve("hymba-1.5b")``
+    at their default (reduced) sizes.
 
-Phases 5, 8, 9, 12, 15, 16 and 18 set their kernels' launch counts to 0
-just before and read them just after. Each phase line carries the
+Phases 5, 8, 9, 12, 15, 16, 18, 22, 23 and 24 set their kernels' launch
+counts to 0 just before and read them just after. Each phase line carries the
 seconds since the script started. Any failure raises and exits non-zero. The
 last two lines are the kernel records and ``{"ok": true, "device":
 {...}}``.
@@ -135,6 +151,13 @@ FAULT_TASK = dict(overschedule_factor=2.0, quorum_frac=0.5,
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_TF = (
     "smollm-360m", 8, 1024, 32, 8)
 SERVE_D, SERVE_F, SERVE_H, SERVE_G, SERVE_HD = 960, 2560, 15, 5, 64
+# The SSM serve path at full width: xLSTM-125M and Hymba-1.5B, bf16,
+# 4 prompts of 2,048 tokens (8,192, phase 15's count), SERVE_NEW new
+# tokens; Hymba's 1,024-token window bites in prefill and in the ring
+# cache. The scan at their shapes: (B, H, S, dk, dv, normalize).
+SSM_B, SSM_PROMPT, SCAN_CHUNK = 4, 2048, 256
+SCAN_SHAPES = {"xlstm-125m": (4, 4, 2048, 384, 384, True),
+               "hymba-1.5b": (4, 25, 2048, 16, 64, False)}
 # Kernel against plain version, by dtype: (rtol, atol) with the reasons
 # in tests/test_torch_cuda.py.
 SERVE_TOL = {
@@ -485,9 +508,12 @@ def timing(fleet) -> dict:
                  f"({nbytes} B)")
     lines += compression_timing(u, w, out)
     lines += serve_timing(out)
+    lines += scan_timing(out)
     phase(6, "median of 20 replays of a graph of 10 calls; bounds at "
              "3.35 TB/s and 67 TFLOP/s f32 (989 TFLOP/s bf16 for the "
-             "products of swiglu and flash_attention): "
+             "products of swiglu and flash_attention and for mlstm_scan's "
+             "QK^T; its other products at the f32 rate, the oracle's "
+             "arithmetic, over the causal pairs of each chunk): "
              + " | ".join(lines))
     return out
 
@@ -630,12 +656,150 @@ def serve_timing(out) -> list[str]:
     return lines
 
 
-def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS) -> dict:
+def scan_inputs(B, H, S, dk, dv, normalize, dtype, g, init=False):
+    """q, k, v (k scaled by dk**-0.5), log f = log_sigmoid(N + 2), log i
+    = 0.5 N (None for SSD) and, with ``init``, an initial state."""
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    q, k = rn(B, H, S, dk).to(dtype), (rn(B, H, S, dk) * dk ** -0.5).to(dtype)
+    v = rn(B, H, S, dv).to(dtype)
+    f = torch.nn.functional.logsigmoid(rn(B, H, S) + 2)
+    i = rn(B, H, S) * 0.5 if normalize else None
+    state = None
+    if init:
+        state = {"S": rn(B, H, dk, dv) * 0.5, "n": rn(B, H, dk) * 0.5,
+                 "m": rn(B, H) * 0.2 if normalize else torch.zeros(
+                     B, H, device="cuda")}
+    return q, k, v, f, i, state
+
+
+def scan_bound(B, H, S, dk, dv, normalize, itemsize=2) -> dict:
+    """The scan's least time. Products within each chunk over the causal
+    pairs c' <= c alone (the function needs no others): Q K^T, at the
+    bf16 tensor-core rate on bf16 inputs (exact there), and P V; then
+    q.S (and q.n with normalization) and the state update, all of these
+    at the f32 rate (the oracle's arithmetic). q, k, v and the gates
+    read once, the output and the f32 state written once."""
+    qk = flops = 0
+    for start in range(0, S, SCAN_CHUNK):
+        c = min(SCAN_CHUNK, S - start)
+        pairs = c * (c + 1) // 2
+        qk += 2 * pairs * dk
+        flops += 2 * pairs * dv + 4 * c * dk * dv
+        if normalize:
+            flops += 4 * c * dk
+    if itemsize != 2:
+        flops, qk = flops + qk, 0
+    nbytes = (B * H * S * (2 * dk + 2 * dv) * itemsize
+              + 4 * B * H * S * (2 if normalize else 1)
+              + 4 * B * H * (dk * dv + dk + 1))
+    return bound(nbytes, B * H * flops, bf16_flops=B * H * qk)
+
+
+def scan_timing(out) -> list[str]:
+    """``mlstm_scan`` at the two serve shapes in bf16, beside its plain
+    version and its bound; no PyTorch call computes gated linear
+    attention (library null). Fills ``out`` and returns the phase-6
+    lines."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(21)
+    lines, t = [], {}
+    for arch, (B, H, S, dk, dv, nz) in SCAN_SHAPES.items():
+        q, k, v, f, i, _ = scan_inputs(B, H, S, dk, dv, nz, torch.bfloat16, g)
+        t[arch] = {"ms": time_ms(lambda: ops.mlstm_scan(
+                       q, k, v, f, i, chunk=SCAN_CHUNK, normalize=nz)),
+                   "plain_ms": time_ms(lambda: ref.mlstm_scan_state_ref(
+                       q, k, v, f, i, chunk=SCAN_CHUNK, normalize=nz)),
+                   "library_ms": None, **scan_bound(B, H, S, dk, dv, nz)}
+        r = t[arch]
+        lines.append(f"mlstm_scan {arch} ({B}, {H}, {S}, {dk} / {dv}) bf16 "
+                     f"{'normalized' if nz else 'SSD'}, chunk {SCAN_CHUNK}: "
+                     f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    out["mlstm_scan"] = {**t["xlstm-125m"], "at_hymba": t["hymba-1.5b"]}
+    return lines
+
+
+def scan_kernel_vs_plain() -> float:
+    """Phase 21: ``mlstm_scan`` against its plain version, output and
+    final state. Returns max |err| of the output at the two serve shapes
+    in bf16."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(22)
+    n, main, worst = 0, 0.0, 0.0
+
+    def held(case, got, want):
+        nonlocal n, worst
+        for a, b in zip((got[0], *got[1].values()),
+                        (want[0], *want[1].values())):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"mlstm_scan {case}: dtype and shape")
+            rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+            torch.testing.assert_close(
+                a.float(), b.float(), rtol=rtol,
+                atol=2e-5 * max(1.0, float(b.float().abs().max())),
+                msg=lambda m: f"mlstm_scan {case}: {m}")
+        err = float((got[0].float() - want[0].float()).abs().max())
+        worst = max(worst, err)
+        n += 1
+        return err
+
+    cases = [(*SCAN_SHAPES[a][:5], SCAN_CHUNK, SCAN_SHAPES[a][5], False)
+             for a in SCAN_SHAPES]
+    for nz in (True, False):
+        cases += [(2, 3, 32, 16, 8, 8, nz, False), (2, 3, 40, 16, 8, 16, nz, False),
+                  (2, 3, 16, 16, 8, 16, nz, False),
+                  (1, 2, 300, 20, 70, 64, nz, False),
+                  (1, 2, 300, 20, 70, 64, nz, True),
+                  (2, 5, 700, 16, 64, 256, nz, True),
+                  (1, 2, 1000, 384, 384, 256, nz, True),
+                  (1, 2, 129, 512, 65, 128, nz, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, S, dk, dv, C, nz, init in cases:
+            q, k, v, f, i, st = scan_inputs(B, H, S, dk, dv, nz, dtype, g,
+                                            init)
+            case = ((B, H, S, dk, dv), C, "mlstm" if nz else "ssd",
+                    "init" if init else "zero", dtype)
+            err = held(case, ops.mlstm_scan(q, k, v, f, i, chunk=C,
+                                            normalize=nz, initial_state=st),
+                       ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=C,
+                                                normalize=nz,
+                                                initial_state=st))
+            if (B, H, S, dk, dv, nz) in SCAN_SHAPES.values() \
+                    and dtype == torch.bfloat16:
+                main = max(main, err)
+        # Hymba's layout: C and B sliced from one (B, S, 2, H, N)
+        # projection, the gates (B, S, H), through the bshd adapter
+        B, S, H, N, dh = 2, 600, 25, 16, 64
+        bc = torch.randn(B, S, 2, H, N, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dtype)
+        f = -torch.rand(B, S, H, generator=g, device="cuda")
+        got = ops.mlstm_scan_bshd(bc[:, :, 1], bc[:, :, 0] * 0.25, v, f, None,
+                                  chunk=SCAN_CHUNK, normalize=False)
+        check(got[0].is_contiguous(), "bshd output (B, S, H, dv) contiguous")
+        held(("bshd views", dtype), got, ops.PLAIN.mlstm_scan_bshd(
+            bc[:, :, 1], bc[:, :, 0] * 0.25, v, f, None, chunk=SCAN_CHUNK,
+            normalize=False))
+    torch.cuda.synchronize()
+    phase(21, f"mlstm_scan vs plain on the card: {n} cases (the serve "
+              f"shapes {list(SCAN_SHAPES.values())}; (B, H, S, dk, dv) from "
+              f"(2, 3, 16, 16, 8) to (1, 2, 1000, 384, 384) and dk 512, "
+              f"chunks 8-256, ragged S, from zeros and from an initial "
+              f"state; Hymba's sliced (B, S, H, d) views), normalized and "
+              f"SSD, f32 and bf16: output and final S, n, m within the "
+              f"stated tolerances; max |err| of the output at the serve "
+              f"shapes in bf16 {main:.3e}, largest over all cases "
+              f"{worst:.3e}")
+    return main
+
+
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS,
+          bf16_flops: int = 0) -> dict:
     """The least time for the work: bytes over the memory rate or
-    operations over the rate for their type (f32 outside the tensor
-    cores unless given), whichever is larger."""
+    operations over the rate for their type (``flops`` at ``peak_flops``,
+    f32 outside the tensor cores unless given, plus ``bf16_flops`` at the
+    bf16 tensor-core rate), whichever is larger."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / peak_flops * 1e3
+    ops_ms = (flops / peak_flops + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -1180,29 +1344,29 @@ def serve_kernels_vs_plain() -> dict:
     return main
 
 
-def serve_full_width() -> dict:
-    """Phase 15: SmolLM-360M at its published width in bf16 through the
-    kernels (the main path, counts set to 0 just before it), then its
-    prefill and SERVE_TF teacher-forced decode steps through the kernels,
-    through the plain versions, and through the plain versions in f32 on
-    the same weights. Returns the launch counts."""
+def full_width_serve(phase_n: int, arch: str, B: int, prompt: int,
+                     want) -> dict:
+    """One model at its published width in bf16 through the kernels: a
+    warm-up, then the main path (counts set to 0 just before it) of a
+    B x ``prompt`` prefill and SERVE_NEW - 1 decode steps, greedy; then
+    its prefill and SERVE_TF teacher-forced decode steps through the
+    kernels (under the profiler), through the plain versions, and
+    through the plain versions in f32 on the same weights. ``want(L)``
+    gives the exact launch counts. Prints phase ``phase_n``'s line and
+    returns the counts."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import common
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), use_kernels=True)
-    L = cfg.num_layers
-    check((L, cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads,
-           cfg.dtype) == (32, SERVE_D, SERVE_F, SERVE_H, SERVE_G, "bfloat16"),
-          "SmolLM-360M at its published width, bf16")
+    cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    check(cfg.dtype == "bfloat16", f"{arch} in bf16")
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)), dtype=torch.int32,
-        device="cuda")
+        0, cfg.vocab_size, (B, prompt)), dtype=torch.int32, device="cuda")
 
     def generate(new):
         torch.cuda.synchronize()
@@ -1215,7 +1379,7 @@ def serve_full_width() -> dict:
         toks = [tok]
         for step in range(new - 1):
             logits, cache = T.decode_step(cfg, params, tok, cache,
-                                          SERVE_PROMPT + step)
+                                          prompt + step)
             tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
             toks.append(tok)
         torch.cuda.synchronize()
@@ -1228,11 +1392,10 @@ def serve_full_width() -> dict:
     torch.cuda.reset_peak_memory_stats()
     tokens, t_pre, t_dec = generate(SERVE_NEW)
     counts = dict(ops.LAUNCHES)
-    want = {"flash_attention": L, "swiglu": L * SERVE_NEW,
-            "rmsnorm": (2 * L + 1) * SERVE_NEW}
+    want = want(cfg.num_layers)
     check({n: c for n, c in counts.items() if c} == want,
-          f"serve launches {counts} == {want}")
-    check(tokens.shape == (SERVE_B, SERVE_NEW) and int(tokens.min()) >= 0
+          f"{arch} serve launches {counts} == {want}")
+    check(tokens.shape == (B, SERVE_NEW) and int(tokens.min()) >= 0
           and int(tokens.max()) < cfg.vocab_size, "generated token ids")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1250,7 +1413,7 @@ def serve_full_width() -> dict:
             nonlocal logits, cache
             for step in range(SERVE_TF):
                 logits, cache = T.decode_step(c, p, tokens[:, step:step + 1],
-                                              cache, SERVE_PROMPT + step,
+                                              cache, prompt + step,
                                               kernels=kernels)
                 outs.append(logits.float())
         _, prof2 = run(decode)
@@ -1273,23 +1436,24 @@ def serve_full_width() -> dict:
     # is held to twice the plain bf16 path's own gap from f32 on the same
     # weights, and to 5 % of the largest |logit|.
     check(float(d_kp.max()) <= 2 * float(d_pf.max()),
-          f"kernel vs plain {float(d_kp.max())} <= 2 x bf16-vs-f32 "
+          f"{arch} kernel vs plain {float(d_kp.max())} <= 2 x bf16-vs-f32 "
           f"{float(d_pf.max())}")
     check(float(d_kp.max()) <= 0.05 * top,
-          f"kernel vs plain {float(d_kp.max())} <= 5 % of max |logit| {top}")
+          f"{arch} kernel vs plain {float(d_kp.max())} <= 5 % of max "
+          f"|logit| {top}")
     steps = SERVE_NEW - 1
     (pre_dev, pre_n, pre_top), (dec_dev, dec_n, dec_top) = profiles
     dec_dev /= SERVE_TF
     busy = ("not measured (the profiler saw no device time)" if not dec_dev
             else f"{dec_dev / (t_dec / steps * 1e3) * 100:.1f} %")
-    phase(15, f"full-width serve: {cfg.name} ({common.count_params(params)} "
-              f"params, bf16, random weights from seed 0 drawn in "
-              f"{init_s:.2f} s), batch {SERVE_B} x prompt {SERVE_PROMPT} + "
-              f"{SERVE_NEW} new tokens, use_kernels=True: prefill "
-              f"{t_pre * 1e3:.1f} ms ({SERVE_B * SERVE_PROMPT / t_pre:.0f} "
-              f"prompt tok/s), decode {t_dec / steps * 1e3:.2f} ms a step of "
-              f"{SERVE_B} tokens over {steps} steps ({SERVE_B * steps / t_dec:.1f} "
-              f"tok/s), peak memory {peak_gb:.2f} GB; launches "
+    phase(phase_n, f"full-width serve: {cfg.name} "
+              f"({common.count_params(params)} params, bf16, random weights "
+              f"from seed 0 drawn in {init_s:.2f} s), batch {B} x prompt "
+              f"{prompt} + {SERVE_NEW} new tokens, use_kernels=True: prefill "
+              f"{t_pre * 1e3:.1f} ms ({B * prompt / t_pre:.0f} prompt "
+              f"tok/s), decode {t_dec / steps * 1e3:.2f} ms a step of {B} "
+              f"tokens over {steps} steps ({B * steps / t_dec:.1f} tok/s), "
+              f"peak memory {peak_gb:.2f} GB; launches "
               + ", ".join(f"{n} {c}" for n, c in counts.items() if c)
               + f" (as expected); kernels vs kernels=ops.PLAIN on the same "
               f"weights, prefill and {SERVE_TF} teacher-forced steps: max "
@@ -1305,16 +1469,61 @@ def serve_full_width() -> dict:
     return counts
 
 
+def serve_full_width() -> dict:
+    """Phase 15: SmolLM-360M at its published width, 8 x 1,024 prompt
+    tokens (see :func:`full_width_serve`). Returns the launch counts."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_heads,
+           cfg.num_kv_heads) == (32, SERVE_D, SERVE_F, SERVE_H, SERVE_G),
+          "SmolLM-360M at its published width")
+    return full_width_serve(
+        15, SERVE_ARCH, SERVE_B, SERVE_PROMPT,
+        lambda L: {"flash_attention": L, "swiglu": L * SERVE_NEW,
+                   "rmsnorm": (2 * L + 1) * SERVE_NEW})
+
+
+def ssm_full_width() -> dict:
+    """Phases 22 and 23: xLSTM-125M and Hymba-1.5B at their published
+    widths, SSM_B x SSM_PROMPT prompt tokens each (see
+    :func:`full_width_serve`). xLSTM launches ``mlstm_scan`` once per
+    mLSTM layer in prefill and ``rmsnorm`` for ``final_norm`` only (its
+    blocks' norms are the model's own, as in the reference); Hymba
+    launches ``mlstm_scan`` and ``flash_attention`` once a layer in
+    prefill and ``swiglu`` and ``rmsnorm`` on every pass. Returns the
+    launch counts by arch."""
+    from repro_torch.configs import get_config
+    x, hy = get_config("xlstm-125m"), get_config("hymba-1.5b")
+    check((x.num_layers, x.d_model, x.num_heads, x.ssm_expand,
+           x.vocab_size, x.chunk_size, x.layer_types.count("slstm"))
+          == (12, 768, 4, 2, 50_304, 256, 2),
+          "xLSTM-125M at its published width")
+    check((hy.num_layers, hy.d_model, hy.num_heads, hy.num_kv_heads,
+           hy.resolved_head_dim, hy.sliding_window, hy.d_ff, hy.ssm_state,
+           hy.chunk_size) == (32, 1600, 25, 5, 64, 1024, 5504, 16, 256),
+          "Hymba-1.5B at its published width")
+    mlstm = x.layer_types.count("mlstm")
+    return {
+        "xlstm-125m": full_width_serve(
+            22, "xlstm-125m", SSM_B, SSM_PROMPT,
+            lambda L: {"mlstm_scan": mlstm, "rmsnorm": SERVE_NEW}),
+        "hymba-1.5b": full_width_serve(
+            23, "hymba-1.5b", SSM_B, SSM_PROMPT,
+            lambda L: {"mlstm_scan": L, "flash_attention": L,
+                       "swiglu": L * SERVE_NEW,
+                       "rmsnorm": (2 * L + 1) * SERVE_NEW})}
+
+
 def device_profile(fn):
-    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activity). Returns
-    its result and (device ms summed over the kernels, the number of
-    kernel launches, the five kernels with the most device time as
-    text). Only the kernel events count: the
-    CPU ops that launched them carry the same device time again."""
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity). Returns its
+    result and (device ms summed over the kernels, the number of kernel
+    launches, the five kernels with the most device time as text). Only
+    the kernel events count, so the host's ops are not recorded: they
+    would multiply the profiler's cost on xLSTM's prefill, whose sLSTM
+    steps launch about 90,000 small kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     dev = lambda e: getattr(e, "self_device_time_total",
@@ -1348,6 +1557,35 @@ def serve_entry_point() -> None:
               f"4 x 32 prompt, 16 tokens) on the card in {wall:.2f} s; "
               f"launches " + ", ".join(f"{n} {c}" for n, c in counts.items())
               + f"; first row {out[0, :8].tolist()}")
+
+
+def ssm_serve_entry_points() -> None:
+    """Phase 24: ``serve("xlstm-125m")`` and ``serve("hymba-1.5b")`` at
+    their defaults (reduced: two layers, d 256, 4 x 32 prompt, 16 tokens)
+    on the card, each with the counts set to 0 just before it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    want = {"xlstm-125m": {"mlstm_scan": 2, "rmsnorm": 16},
+            "hymba-1.5b": {"mlstm_scan": 2, "flash_attention": 2,
+                           "swiglu": 32, "rmsnorm": 80}}
+    parts = []
+    for arch, expect in want.items():
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(arch, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for n, c in ops.LAUNCHES.items() if c}
+        check(out.shape == (4, 16) and out.device.type == "cuda",
+              f"serve({arch!r}) returns (4, 16) tokens on the card")
+        check(counts == expect, f"serve({arch!r}) launches {counts}")
+        parts.append(f"{arch} {wall:.2f} s, launches "
+                     + ", ".join(f"{n} {c}" for n, c in counts.items())
+                     + f", first row {out[0, :8].tolist()}")
+    phase(24, "serve() defaults on the card (reduced: 2 layers, d 256, 4 x "
+              "32 prompt, 16 tokens): " + "; ".join(parts))
 
 
 def agg_kernel_vs_plain() -> float:
@@ -1649,6 +1887,9 @@ def main() -> int:
     agg_launches = host_plane(base_ms)
     fault_plane()
     library_settings()
+    scan_err = scan_kernel_vs_plain()
+    ssm_launches = ssm_full_width()
+    ssm_serve_entry_points()
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",
@@ -1676,6 +1917,12 @@ def main() -> int:
         records.append(record(name, csrc + name + ".cu",
                               "src/repro/kernels/" + line,
                               serve_launches[name], errs[name], t[name]))
+    records.append(record(
+        "mlstm_scan", csrc + "mlstm_scan.cu",
+        "src/repro/kernels/mlstm_scan.py:95",
+        sum(c["mlstm_scan"] for c in ssm_launches.values()), scan_err,
+        {**t["mlstm_scan"], "launches_by_arch": {
+            a: c["mlstm_scan"] for a, c in ssm_launches.items()}}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,12 @@ through the kernel; set an entry to 0 to start a count.
   (lines 81, 117, 145, 197): the codecs of the compressed update plane
   (fl.compression), launched once per round by the codec that uses
   them.
+- ``rmsnorm``, ``swiglu`` and ``flash_attention`` replace
+  ``src/repro/kernels/{rmsnorm,swiglu,flash_attention}.py`` (lines 23,
+  38, 77): the serve path's norms, MLPs and prefill attention.
+- ``mlstm_scan`` replaces ``src/repro/kernels/mlstm_scan.py`` (line
+  95): chunkwise gated linear attention, once per mLSTM layer (xLSTM)
+  or mamba head (Hymba) in prefill; it also returns the final state.
 
 ``PLAIN`` holds the plain versions of the ops that fl.round and
 fl.compression and models.transformer call, under the same names:
@@ -45,6 +51,7 @@ from . import compression as _compression
 from . import fedavg_agg as _fedavg_agg
 from . import flash_attention as _flash_attention
 from . import mkp_utility as _mkp_utility
+from . import mlstm_scan as _mlstm_scan
 from . import ref
 from . import rmsnorm as _rmsnorm
 from . import segmented_topk as _segmented_topk
@@ -53,7 +60,7 @@ from . import swiglu as _swiglu
 LAUNCHES = {"fedavg_agg": 0, "fedavg_agg_quality": 0, "segmented_topk": 0,
             "mkp_utility": 0, "topk_sparsify": 0, "quantize_i8": 0,
             "dequantize_i8": 0, "fedavg_agg_quality_i8": 0, "rmsnorm": 0,
-            "swiglu": 0, "flash_attention": 0}
+            "swiglu": 0, "flash_attention": 0, "mlstm_scan": 0}
 
 
 def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -206,6 +213,52 @@ flash_attention_bshd.__doc__ = (
     ":func:`flash_attention` on views with axes 1 and 2 swapped.")
 
 
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_f: torch.Tensor, log_i: torch.Tensor | None = None, *,
+               chunk: int = 64, normalize: bool = True, initial_state=None):
+    """Chunkwise gated linear attention: q, k (B, H, S, dk), v (B, H, S,
+    dv), gates (B, H, S) f32 (``log_i=None``: the SSD form). Returns
+    ``(out (B, H, S, dv), final state {S, n, m} f32)``; see
+    :func:`repro_torch.kernels.ref.mlstm_scan_state_ref`."""
+    if q.device.type == "cpu":
+        return ref.mlstm_scan_state_ref(q, k, v, log_f, log_i, chunk=chunk,
+                                        normalize=normalize,
+                                        initial_state=initial_state)
+    out = _mlstm_scan.mlstm_scan(q, k, v, log_f, log_i, chunk=chunk,
+                                 normalize=normalize,
+                                 initial_state=initial_state)
+    LAUNCHES["mlstm_scan"] += 1
+    return out
+
+
+def scan_bshd(scan):
+    """A scan op on (B, H, S, d) as one on the models' (B, S, H, d)
+    layout, with ``models.ssm.gated_linear_attention``'s signature: the
+    axis swaps are views (the kernel takes strides)."""
+    def adapter(q, k, v, log_f, log_i=None, *, chunk=64, normalize=True,
+                initial_state=None):
+        t = lambda x: x.transpose(1, 2)
+        out, state = scan(t(q), t(k), t(v), t(log_f),
+                          None if log_i is None else t(log_i), chunk=chunk,
+                          normalize=normalize, initial_state=initial_state)
+        return t(out), state
+    return adapter
+
+
+mlstm_scan_bshd = scan_bshd(mlstm_scan)
+mlstm_scan_bshd.__doc__ = (
+    "Adapter for models.ssm's (B, S, H, d) layout: :func:`mlstm_scan` on "
+    "views with axes 1 and 2 swapped.")
+
+
+def _gated_linear_attention(*args, **kwargs):
+    """The plain scan in the models' (B, S, H, d) layout:
+    ``models.ssm.gated_linear_attention`` itself, imported at call time
+    as ``ref`` does."""
+    from ..models.ssm import gated_linear_attention
+    return gated_linear_attention(*args, **kwargs)
+
+
 PLAIN = types.SimpleNamespace(
     fedavg_agg=ref.fedavg_agg_ref,
     fedavg_agg_tree=functools.partial(_fedavg_agg.fedavg_agg_tree,
@@ -218,10 +271,13 @@ PLAIN = types.SimpleNamespace(
     rmsnorm=ref.rmsnorm_ref,
     swiglu=ref.swiglu_ref,
     flash_attention=ref.flash_attention_ref,
-    flash_attention_bshd=bshd(ref.flash_attention_ref))
+    flash_attention_bshd=bshd(ref.flash_attention_ref),
+    mlstm_scan=ref.mlstm_scan_state_ref,
+    mlstm_scan_bshd=_gated_linear_attention)
 
 __all__ = ["LAUNCHES", "PLAIN", "bshd", "dequantize_i8", "fedavg_agg",
            "fedavg_agg_quality", "fedavg_agg_tree",
            "fedavg_agg_quality_i8", "flash_attention", "flash_attention_bshd",
-           "mkp_utility", "quantize_i8", "rmsnorm", "segmented_topk",
-           "swiglu", "topk_sparsify"]
+           "mkp_utility", "mlstm_scan", "mlstm_scan_bshd", "quantize_i8",
+           "rmsnorm", "scan_bshd", "segmented_topk", "swiglu",
+           "topk_sparsify"]

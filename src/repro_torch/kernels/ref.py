@@ -179,3 +179,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bgkh->bgrqh", p, v.to(torch.float32))
     return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def mlstm_scan_state_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         log_f: torch.Tensor, log_i=None, *, chunk: int = 64,
+                         normalize: bool = True, initial_state=None):
+    """Chunkwise gated linear attention in the kernel's layout: q, k
+    (B, H, S, dk), v (B, H, S, dv), gates (B, H, S) (``log_i=None``: the
+    SSD form). Returns ``(out (B, H, S, dv) in v's type, {S (B, H, dk,
+    dv), n (B, H, dk), m (B, H)} in f32)``, the final state stabilized
+    (S_true = e^m S); ``initial_state`` (same keys) is read instead of
+    zeros. Delegates to :func:`repro_torch.models.ssm.gated_linear_attention`
+    on (B, S, H, d) views."""
+    from ..models.ssm import gated_linear_attention
+    t = lambda x: x.transpose(1, 2)
+    out, state = gated_linear_attention(
+        t(q), t(k), t(v), t(log_f), None if log_i is None else t(log_i),
+        chunk=chunk, normalize=normalize, initial_state=initial_state)
+    return t(out), state
+
+
+def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_f: torch.Tensor, log_i=None, *, chunk: int = 64,
+                   normalize: bool = True):
+    """The reference's ``ref.mlstm_scan_ref``: :func:`mlstm_scan_state_ref`'s
+    output alone, (B, H, S, dv) in v's type."""
+    return mlstm_scan_state_ref(q, k, v, log_f, log_i, chunk=chunk,
+                                normalize=normalize)[0]

@@ -1,9 +1,11 @@
 """Serving entry point: batched prefill + decode loop through the port's
-kernels (``use_kernels=True``) on a reduced dense architecture, on the
-card unless the caller asks for the CPU.
+kernels (``use_kernels=True``) on a reduced architecture of the dense,
+SSM (xLSTM) or hybrid (Hymba) family, on the card unless the caller
+asks for the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
 from __future__ import annotations

@@ -3,7 +3,8 @@
 A copy of the JAX package's ``models/common.py``: one frozen
 ``ModelConfig`` covers the six families (dense / moe / hybrid / ssm /
 vlm / audio); family-specific fields are zero or None when unused. The
-port's transformer runs the dense ``"attn"`` layer type; the other
+port's transformer runs the dense ``"attn"`` layer type and the SSM and
+hybrid ones (``"mlstm"``, ``"slstm"``, ``"hymba"``); the other
 families' fields are kept so every config of ``repro_torch.configs``
 carries the reference's values.
 """
@@ -135,9 +136,11 @@ class ModelConfig:
 
 
 def count_params(params) -> int:
-    """Elements over every tensor of a nested dict."""
+    """Elements over every tensor of nested dicts and lists."""
     if isinstance(params, dict):
         return sum(count_params(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(count_params(v) for v in params)
     return params.numel()
 
 

@@ -1,9 +1,13 @@
-"""The decoder stack for the dense ``"attn"`` layer type, with its serve
-path: the JAX package's ``models/transformer.py`` in PyTorch.
+"""The decoder stack for the dense ``"attn"`` layer type and the SSM and
+hybrid layer types (``"mlstm"``, ``"slstm"``, ``"hymba"``), with their
+serve path: the JAX package's ``models/transformer.py`` in PyTorch.
 
-Parameters are nested dicts of tensors in the reference's layout, the
-layers stacked on a leading (L, ...) axis; the reference's ``lax.scan``
-over layers is a loop over that axis here.
+Parameters are nested dicts of tensors in the reference's layout. A
+homogeneous stack (one type, and that type scannable) keeps its layers
+stacked on a leading (L, ...) axis, and the reference's ``lax.scan``
+over layers is a loop over that axis here; a heterogeneous stack
+(xLSTM's mix of sLSTM and mLSTM) keeps a list of per-layer dicts, as
+the reference does. Caches follow their params' form.
 
 Public API:
   init_params(cfg, gen)                          -> params
@@ -17,17 +21,21 @@ Public API:
 
 **Kernels.** With ``cfg.use_kernels`` set, and no ``flash_fn`` or
 ``swiglu_fn`` of the caller's own, prefill attention is
-``kernels.flash_attention_bshd``, every SwiGLU ``kernels.swiglu`` and
-every RMSNorm ``kernels.rmsnorm``, for ``kernels`` the namespace passed
-(default :mod:`repro_torch.kernels.ops`; ``ops.PLAIN`` runs the plain
-versions). Decode attends to the KV cache in plain torch, as the
-reference does. Without ``use_kernels`` the stack is the reference's
-plain model. ``decode_step`` updates the cache's tensors in place.
+``kernels.flash_attention_bshd``, every SwiGLU ``kernels.swiglu``, every
+RMSNorm of the stack (``norm1``, ``norm2``, ``final_norm``)
+``kernels.rmsnorm`` and every prefill scan of the mLSTM blocks and the
+mamba heads ``kernels.mlstm_scan_bshd``, for ``kernels`` the namespace
+passed (default :mod:`repro_torch.kernels.ops`; ``ops.PLAIN`` runs the
+plain versions). The blocks' own norms and the sLSTM's feed-forward are
+plain, and decode attends to the KV cache and steps the recurrent state
+in plain torch, as the reference does. Without ``use_kernels`` the
+stack is the reference's plain model. ``decode_step`` updates a stacked
+cache's tensors in place; a list cache comes back as a new list.
 
-Not ported (each raises ``NotImplementedError``): the MoE, mLSTM /
-sLSTM, Hymba and cross-attention layer types, the vision / audio
-frontends and the encoder (ROADMAP.md Queue 1 item 9), and ``remat``
-(this slice has no backward path).
+Not ported (each raises ``NotImplementedError``): the MoE and
+cross-attention layer types, the vision / audio frontends and the
+encoder (ROADMAP.md Queue 1 item 9), and ``remat`` (this slice has no
+backward path).
 """
 from __future__ import annotations
 
@@ -35,19 +43,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import ssm
 from .common import ModelConfig
 from .layers import (apply_norm, attn_params, dense_init, mlp, mlp_params,
                      norm_params, self_attention, sinusoidal_embedding)
 
 _CUT = ("is not ported yet (ROADMAP.md Queue 1 item 9: the rest of the "
         "models)")
+PORTED = ("attn", "hymba", "mlstm", "slstm")
+SCANNABLE = {"attn", "hymba", "mlstm"}
+# Each ported layer type's top-level parameter names.
+LAYER_KEYS = {
+    "attn": {"norm1", "attn", "norm2", "mlp"},
+    "hymba": {"norm1", "attn", "norm2", "mamba", "mlp"},
+    "mlstm": {"norm", "w_up", "w_gate", "conv_w", "wq", "wk", "wv", "w_if",
+              "b_if", "head_norm", "w_down"},
+    "slstm": {"norm", "w_gates", "b_gates", "r_gates", "head_norm",
+              "ffn_norm", "w_ff_gate", "w_ff_up", "w_ff_down"},
+}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    types = set(cfg.layer_types)
-    if types != {"attn"}:
-        raise NotImplementedError(f"layer types {sorted(types)} {_CUT}; the "
-                                  "port runs the dense 'attn' stack")
+    cut = sorted(set(cfg.layer_types) - set(PORTED))
+    if cut:
+        raise NotImplementedError(f"layer types {cut} {_CUT}; the port runs "
+                                  f"{', '.join(PORTED)}")
     if cfg.is_enc_dec:
         raise NotImplementedError(f"the encoder-decoder stack {_CUT}")
     if cfg.remat:
@@ -55,19 +75,21 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _routes(cfg: ModelConfig, flash_fn, swiglu_fn, kernels):
-    """(flash_fn, swiglu_fn, norm namespace) for a pass."""
+    """(flash_fn, swiglu_fn, scan_fn, norm namespace) for a pass."""
     if not cfg.use_kernels:
-        return flash_fn, swiglu_fn, None
+        return flash_fn, swiglu_fn, None, None
     if kernels is None:
         from ..kernels import ops as kernels
     return (flash_fn or kernels.flash_attention_bshd,
-            swiglu_fn or kernels.swiglu, kernels)
+            swiglu_fn or kernels.swiglu, kernels.mlstm_scan_bshd, kernels)
 
 
 def tree_map(fn, tree):
-    """``fn`` over every tensor leaf of a nested dict."""
+    """``fn`` over every tensor leaf of nested dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -76,45 +98,85 @@ def tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 
 def layer_params(cfg: ModelConfig, ltype: str, gen: torch.Generator):
-    if ltype != "attn":
+    if ltype == "mlstm":
+        return ssm.mlstm_block_params(cfg, gen)
+    if ltype == "slstm":
+        return ssm.slstm_block_params(cfg, gen)
+    if ltype not in PORTED:
         raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
-    return {"norm1": norm_params(cfg, gen.device),
-            "attn": attn_params(cfg, gen),
-            "norm2": norm_params(cfg, gen.device),
-            "mlp": mlp_params(cfg, gen)}
+    p = {"norm1": norm_params(cfg, gen.device),
+         "attn": attn_params(cfg, gen),
+         "norm2": norm_params(cfg, gen.device)}
+    if ltype == "hymba":
+        p["mamba"] = ssm.mamba_head_params(cfg, gen)
+    p["mlp"] = mlp_params(cfg, gen)
+    return p
 
 
 def layer_apply(cfg: ModelConfig, ltype: str, p, x, positions, cache=None,
                 memory=None, *, decode=False, build_cache=False,
-                flash_fn=None, swiglu_fn=None, kernels=None):
+                flash_fn=None, swiglu_fn=None, scan_fn=None, kernels=None):
     """One layer: (x, new_cache, aux). ``kernels`` is the RMSNorm namespace
-    (None: the model's own norm)."""
-    if ltype != "attn":
-        raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
+    (None: the model's own norm); ``scan_fn`` the prefill scan of the
+    mLSTM blocks and mamba heads (None: the plain oracle)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    keep = cache is not None or build_cache
+    if ltype == "mlstm":
+        state = conv = None
+        if cache is not None:
+            state, conv = cache["state"], cache["conv"]
+        x, (state, conv) = ssm.mlstm_block_apply(
+            cfg, p, x, state, conv, decode=decode, build_cache=build_cache,
+            scan_fn=scan_fn)
+        return x, ({"state": state, "conv": conv} if keep else None), aux
+    if ltype == "slstm":
+        state = cache["state"] if cache is not None else None
+        x, state = ssm.slstm_block_apply(cfg, p, x, state)
+        return x, ({"state": state} if keep else None), aux
+    if ltype not in PORTED:
+        raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
     kv = cache["kv"] if cache is not None else None
     h = apply_norm(cfg, p["norm1"], x, kernels)
     o, new_kv = self_attention(cfg, p["attn"], h, positions, causal=True,
                                kv_cache=kv, build_cache=build_cache,
                                flash_fn=flash_fn)
-    x = x + o
+    if ltype == "hymba":
+        state = conv = None
+        if cache is not None:
+            state, conv = cache["state"], cache["conv"]
+        mamba_o, (state, conv) = ssm.mamba_head_apply(
+            cfg, p["mamba"], h, state, conv, decode=decode,
+            build_cache=build_cache, scan_fn=scan_fn)
+        x = x + 0.5 * (o + mamba_o)           # parallel-head fusion
+        newc = {"kv": new_kv, "state": state, "conv": conv}
+    else:
+        x = x + o
+        newc = {"kv": new_kv}
     h = apply_norm(cfg, p["norm2"], x, kernels)
     x = x + mlp(cfg, p["mlp"], h, swiglu_fn)
-    newc = {"kv": new_kv} if (cache is not None or build_cache) else None
-    return x, newc, aux
+    return x, (newc if keep else None), aux
 
 
 # ---------------------------------------------------------------------------
 # Stacks
 # ---------------------------------------------------------------------------
 
+def _is_homogeneous(types) -> bool:
+    """Whether a stack of these layer types keeps stacked (L, ...) params
+    and caches (the reference's scanned stacks) rather than per-layer
+    lists."""
+    types = set(types)
+    return len(types) == 1 and next(iter(types)) in SCANNABLE
+
+
 def stack_params(cfg: ModelConfig, gen: torch.Generator, num_layers=None,
                  ltype=None):
-    """Stacked (L, ...) params of a homogeneous stack."""
+    """Stacked (L, ...) params of a homogeneous stack, a list of per-layer
+    params otherwise."""
     L = num_layers or cfg.num_layers
-    t = ltype or cfg.layer_types[0]
-    layers = [layer_params(cfg, t, gen) for _ in range(L)]
-    return _stack(layers)
+    types = [ltype] * L if ltype else list(cfg.layer_types)
+    layers = [layer_params(cfg, t, gen) for t in types]
+    return _stack(layers) if _is_homogeneous(types) else layers
 
 
 def _stack(trees):
@@ -128,29 +190,47 @@ def _index(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _write_back(views, new):
+    """Copy a layer's new cache into the stacked cache's views of it; the
+    leaves that decode updated in place (the KV cache) are the views."""
+    if isinstance(views, dict):
+        for k in views:
+            _write_back(views[k], new[k])
+    elif new is not views:
+        views.copy_(new)
+
+
 def stack_apply(cfg, params, x, positions, cache=None, memory=None, *,
                 decode=False, build_cache=False, flash_fn=None,
                 swiglu_fn=None, kernels=None):
     """Apply the layer stack. Returns (x, new_cache, aux). ``kernels``:
     see the module docstring."""
     _check_supported(cfg)
-    flash_fn, swiglu_fn, norm_ns = _routes(cfg, flash_fn, swiglu_fn, kernels)
-    L = cfg.num_layers
+    flash_fn, swiglu_fn, scan_fn, norm_ns = _routes(cfg, flash_fn, swiglu_fn,
+                                                    kernels)
+    types = list(cfg.layer_types)
+    stacked = not isinstance(params, list)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     built = []
-    for i in range(L):
-        c = _index(cache, i) if cache is not None else None
-        x, nc, a = layer_apply(cfg, "attn", _index(params, i), x, positions,
-                               c, memory, decode=decode,
-                               build_cache=build_cache and cache is None,
+    for i, t in enumerate(types):
+        p = _index(params, i) if stacked else params[i]
+        c = None
+        if cache is not None:
+            c = _index(cache, i) if stacked else cache[i]
+        x, nc, a = layer_apply(cfg, t, p, x, positions, c, memory,
+                               decode=decode, build_cache=build_cache,
                                flash_fn=flash_fn, swiglu_fn=swiglu_fn,
-                               kernels=norm_ns)
+                               scan_fn=scan_fn, kernels=norm_ns)
         aux = aux + a
-        if cache is None and build_cache:
+        if stacked and cache is not None:
+            _write_back(c, nc)      # decode: the stacked cache, in place
+        else:
             built.append(nc)
-    if cache is not None:       # decode: the stacked views were updated
-        return x, cache, aux
-    return x, (_stack(built) if build_cache else None), aux
+    if cache is not None:
+        return x, (cache if stacked else built), aux
+    if not build_cache:
+        return x, None, aux
+    return x, (_stack(built) if stacked else built), aux
 
 
 # ---------------------------------------------------------------------------
@@ -159,23 +239,48 @@ def stack_apply(cfg, params, x, positions, cache=None, memory=None, *,
 
 def init_layer_cache(cfg: ModelConfig, ltype: str, B: int, cache_len: int,
                      dtype, device=None):
-    if ltype != "attn":
-        raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
-    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    W = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
-        else cache_len
-    return {"kv": {"k": torch.zeros(B, W, G, hd, dtype=dtype, device=device),
-                   "v": torch.zeros(B, W, G, hd, dtype=dtype, device=device),
-                   "pos": torch.full((W,), -1, dtype=torch.int32,
-                                     device=device)}}
+    G, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def kv_cache(length):
+        W = min(length, cfg.sliding_window) if cfg.sliding_window else length
+        return {"k": torch.zeros(B, W, G, hd, dtype=dtype, device=device),
+                "v": torch.zeros(B, W, G, hd, dtype=dtype, device=device),
+                "pos": torch.full((W,), -1, dtype=torch.int32,
+                                  device=device)}
+
+    def gla_state(dk, dv):
+        return {"S": torch.zeros(B, H, dk, dv, **f32),
+                "n": torch.zeros(B, H, dk, **f32),
+                "m": torch.zeros(B, H, **f32)}
+
+    def conv(width):
+        return torch.zeros(B, cfg.conv_kernel - 1, width, dtype=dtype,
+                           device=device)
+
+    if ltype == "attn":
+        return {"kv": kv_cache(cache_len)}
+    if ltype == "hymba":
+        return {"kv": kv_cache(cache_len),
+                "state": gla_state(cfg.ssm_state, d // H), "conv": conv(d)}
+    if ltype == "mlstm":
+        inner = cfg.ssm_expand * d
+        return {"state": gla_state(inner // H, inner // H),
+                "conv": conv(inner)}
+    if ltype == "slstm":
+        z = lambda: torch.zeros(B, H, d // H, **f32)
+        return {"state": {"c": z(), "n": z(), "h": z(), "m": z()}}
+    raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
 
 
 def init_decode_cache(cfg: ModelConfig, B: int, cache_len: int, dtype=None,
                       device=None):
     _check_supported(cfg)
     dtype = dtype or cfg.param_dtype
-    return _stack([init_layer_cache(cfg, "attn", B, cache_len, dtype, device)
-                   for _ in range(cfg.num_layers)])
+    per = [init_layer_cache(cfg, t, B, cache_len, dtype, device)
+           for t in cfg.layer_types]
+    return _stack(per) if _is_homogeneous(cfg.layer_types) else per
 
 
 # ---------------------------------------------------------------------------
@@ -205,32 +310,37 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _layer_type(keys) -> str:
+    for t, need in LAYER_KEYS.items():
+        if set(keys) == need:
+            return t
+    raise NotImplementedError(f"layer params {sorted(keys)}: only the "
+                              f"{', '.join(PORTED)} layer types are ported")
+
+
 def params_from_jax(tree) -> dict:
-    """The reference's ``init_params`` tree of a dense ``"attn"`` stack
-    (numpy arrays; bf16 as ``ml_dtypes.bfloat16``) -> this module's tree on
-    the CPU: the same nesting, the stacked (L, ...) layout, the same
-    dtypes. Layouts agree, so this copies."""
+    """The reference's ``init_params`` tree (numpy arrays; bf16 as
+    ``ml_dtypes.bfloat16``) -> this module's tree on the CPU: the same
+    nesting, the same dtypes, stacked (L, ...) layers as stacked, a list
+    of per-layer dicts as a list. Layouts agree, so this copies."""
     extra = set(tree) - {"embed", "layers", "final_norm", "lm_head"}
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
                                   f"parts that {_CUT}")
-    if not isinstance(tree["layers"], dict):
-        raise ValueError("expected the stacked (scanned) layer params")
-    need = {"norm1", "attn", "norm2", "mlp"}
-    if set(tree["layers"]) != need:
-        raise NotImplementedError(f"layer params {sorted(tree['layers'])}: "
-                                  f"only the dense 'attn' layer ({sorted(need)}) "
-                                  f"is ported")
+    layers = tree["layers"]
+    for layer in (layers if isinstance(layers, list) else [layers]):
+        _layer_type(layer)
     out = tree_map(_to_torch, tree)
-    depth = {a.shape[0] for a in _leaves(out["layers"])}
-    if len(depth) != 1:
-        raise ValueError(f"stacked layer leaves disagree on L: {depth}")
+    if isinstance(layers, dict):
+        depth = {a.shape[0] for a in _leaves(out["layers"])}
+        if len(depth) != 1:
+            raise ValueError(f"stacked layer leaves disagree on L: {depth}")
     return out
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -266,7 +376,7 @@ def forward(cfg: ModelConfig, params, tokens, extras=None, flash_fn=None,
                             memory=memory, flash_fn=flash_fn,
                             swiglu_fn=swiglu_fn, kernels=kernels)
     x = apply_norm(cfg, params["final_norm"], x,
-                   _routes(cfg, flash_fn, swiglu_fn, kernels)[2])
+                   _routes(cfg, flash_fn, swiglu_fn, kernels)[3])
     return unembed(cfg, params, x), aux
 
 
@@ -307,16 +417,27 @@ def prefill(cfg: ModelConfig, params, tokens, extras=None, flash_fn=None,
                               flash_fn=flash_fn, swiglu_fn=swiglu_fn,
                               kernels=kernels)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:],
-                   _routes(cfg, flash_fn, swiglu_fn, kernels)[2])
+                   _routes(cfg, flash_fn, swiglu_fn, kernels)[3])
     return unembed(cfg, params, x), cache, memory
 
 
 def grow_cache(cfg: ModelConfig, cache, extra: int):
-    """Extend a full (non-ring) stacked KV cache by ``extra`` decode slots."""
-    if cfg.sliding_window or "kv" not in cache:
+    """Extend a full (non-ring) KV cache by ``extra`` decode slots, per
+    layer for a list cache; a windowed (ring) cache and a cache with no
+    KV (the recurrent layers) are left as they are."""
+    if cfg.sliding_window:
         return cache
-    kv = cache["kv"]                              # k, v: (L, B, S, G, hd)
-    pad = lambda a: F.pad(a, (0, 0, 0, 0, 0, extra))
+    if isinstance(cache, list):
+        return [_grow_kv(c, extra, 1) for c in cache]
+    return _grow_kv(cache, extra, 2)
+
+
+def _grow_kv(cache, extra: int, axis: int):
+    """Pad a cache's k, v (sequence at ``axis``) and pos (its last axis)."""
+    if "kv" not in cache:
+        return cache
+    kv = cache["kv"]
+    pad = lambda a: F.pad(a, (0, 0) * (a.ndim - 1 - axis) + (0, extra))
     return {**cache, "kv": {"k": pad(kv["k"]), "v": pad(kv["v"]),
                             "pos": F.pad(kv["pos"], (0, extra), value=-1)}}
 
@@ -324,8 +445,8 @@ def grow_cache(cfg: ModelConfig, cache, extra: int):
 def decode_step(cfg: ModelConfig, params, tokens, cache, index, memory=None,
                 flash_fn=None, swiglu_fn=None, kernels=None):
     """One decode step. tokens: (B, 1); index: the absolute position (an
-    int). Returns (logits, cache); the cache's tensors are updated in
-    place."""
+    int). Returns (logits, cache); a stacked cache's tensors are updated
+    in place, a list cache comes back as a new list."""
     x = params["embed"][tokens]
     if cfg.positional == "sinusoidal":
         x = x + _sin_at(int(index), cfg.d_model, x.dtype, x.device)[None, None]
@@ -336,7 +457,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, index, memory=None,
                               flash_fn=flash_fn, swiglu_fn=swiglu_fn,
                               kernels=kernels)
     x = apply_norm(cfg, params["final_norm"], x,
-                   _routes(cfg, flash_fn, swiglu_fn, kernels)[2])
+                   _routes(cfg, flash_fn, swiglu_fn, kernels)[3])
     return unembed(cfg, params, x), cache
 
 

@@ -36,7 +36,14 @@ products loses its relative accuracy and |u| (up to about 30) scales
 that error (seen: 3e-5 at D = 960 in bf16). ``flash_attention``: f32
 rtol = atol = 2e-5, bf16 2e-2 (the reference's own kernel tolerances,
 tests/test_kernels.py; the bf16 kernel also rounds the probabilities to
-bf16 for the P·V product).
+bf16 for the P·V product). ``mlstm_scan``: kernel and plain version
+compute in f32 (bf16 inputs converted exactly) and sum in other orders,
+over up to 256 keys a chunk and 384 head dims: the output and the f32
+state within rtol 1e-4 and an atol of 2e-5 x max(1, the largest |value|)
+(seen: 1.1e-5 relative at dk = dv = 384; the floor holds a state that is
+0 on one side, as the SSD form's m, to f32 rounding of unit-scale
+gates); a bf16 output, rounded once from f32 on both sides, within one
+bf16 ulp (rtol 2**-7) and the same atol.
 """
 import dataclasses
 
@@ -57,6 +64,7 @@ from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
 from repro_torch.kernels import compression as kcomp
 from repro_torch.kernels import fedavg_agg, mkp_utility, ops, ref
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mlstm_scan as kmlstm
 from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels import segmented_topk
 from repro_torch.kernels import swiglu as kswiglu
@@ -675,5 +683,143 @@ def test_reduced_serve_kernels_vs_plain(cuda, dtype):
     assert ops.LAUNCHES["flash_attention"] == n
     assert ops.LAUNCHES["swiglu"] == 5 * n
     assert ops.LAUNCHES["rmsnorm"] == 5 * (2 * n + 1)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(runs[0], runs[1], rtol=tol, atol=tol)
+
+
+# (B, H, S, dk, dv, chunk): the reference's sweep, ragged S and odd
+# widths, Hymba's head (dk 16, dv 64) and xLSTM's (384 / 384)
+SCAN_CASES = [(2, 3, 32, 16, 8, 8), (2, 3, 40, 16, 8, 16),
+              (2, 3, 16, 16, 8, 16), (1, 2, 300, 20, 70, 64),
+              (2, 5, 700, 16, 64, 256), (1, 2, 600, 384, 384, 256),
+              (1, 1, 5, 1, 1, 256), (1, 2, 129, 512, 65, 128)]
+
+
+def scan_inputs(B, H, S, dk, dv, normalize, dtype, device, seed=0,
+                init=False):
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=device)
+    q, k = rn(B, H, S, dk).to(dtype), (rn(B, H, S, dk) * dk ** -0.5).to(dtype)
+    v = rn(B, H, S, dv).to(dtype)
+    log_f = torch.nn.functional.logsigmoid(rn(B, H, S) + 2)
+    log_i = rn(B, H, S) * 0.5 if normalize else None
+    state = None
+    if init:
+        state = {"S": rn(B, H, dk, dv) * 0.5, "n": rn(B, H, dk) * 0.5,
+                 "m": rn(B, H) * 0.2 if normalize else torch.zeros(
+                     B, H, device=device)}
+    return q, k, v, log_f, log_i, state
+
+
+def assert_scan_close(got, want):
+    for a, b in zip((got[0], *got[1].values()), (want[0], *want[1].values())):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+        atol = 2e-5 * max(1.0, float(b.float().abs().max()))
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("normalize", [True, False], ids=["mlstm", "ssd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+def test_mlstm_scan_kernel_matches_plain(cuda, case, dtype, normalize, init):
+    """Output and final state (S, n, m) against the plain version, from
+    zeros and from a given initial state; one launch, repeatable."""
+    B, H, S, dk, dv, chunk = case
+    q, k, v, f, i, st = scan_inputs(B, H, S, dk, dv, normalize, dtype, cuda,
+                                    init=init)
+    before = ops.LAUNCHES["mlstm_scan"]
+    got = ops.mlstm_scan(q, k, v, f, i, chunk=chunk, normalize=normalize,
+                         initial_state=st)
+    assert ops.LAUNCHES["mlstm_scan"] == before + 1
+    want = ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=chunk,
+                                    normalize=normalize, initial_state=st)
+    assert_scan_close(got, want)
+    again = ops.mlstm_scan(q, k, v, f, i, chunk=chunk, normalize=normalize,
+                           initial_state=st)
+    assert torch.equal(again[0], got[0])
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["mlstm", "ssd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_scan_bshd_reads_views_in_place(cuda, dtype, normalize):
+    """The blocks' (B, S, H, d) tensors go in as transposed views, q a
+    slice of a wider projection as Hymba's C is; the output comes back
+    (B, S, H, dv) contiguous."""
+    B, S, H, dk, dv = 2, 300, 5, 16, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bc = torch.randn(B, S, 2, H, dk, generator=g, device=cuda).to(dtype)
+    q, k = bc[:, :, 1], bc[:, :, 0] * 0.25
+    v = torch.randn(B, S, H, dv, generator=g, device=cuda).to(dtype)
+    f = torch.nn.functional.logsigmoid(
+        torch.randn(B, S, H, generator=g, device=cuda) + 2)
+    i = torch.randn(B, S, H, generator=g, device=cuda) if normalize else None
+    out, state = ops.mlstm_scan_bshd(q, k, v, f, i, chunk=128,
+                                     normalize=normalize)
+    assert out.is_contiguous() and out.shape == (B, S, H, dv)
+    want = ops.PLAIN.mlstm_scan_bshd(q, k, v, f, i, chunk=128,
+                                     normalize=normalize)
+    assert_scan_close((out, state), want)
+
+
+def test_mlstm_scan_refuses_bad_inputs(cuda):
+    q = torch.ones(1, 2, 8, 16, device=cuda)
+    v = torch.ones(1, 2, 8, 4, device=cuda)
+    f = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kmlstm.mlstm_scan(q.half(), q.half(), v.half(), f)
+    with pytest.raises(ValueError, match="float32 gates"):
+        kmlstm.mlstm_scan(q, q, v, f.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dk <= 512"):
+        big = torch.ones(1, 2, 8, 520, device=cuda)
+        kmlstm.mlstm_scan(big, big, v, f)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        kmlstm.mlstm_scan(q, q, v, f, chunk=512)
+    with pytest.raises(ValueError, match=r"\(B, H, S, dk\)"):
+        kmlstm.mlstm_scan(q, q[:, :1], v, f)
+    with pytest.raises(ValueError, match="initial_state"):
+        kmlstm.mlstm_scan(q, q, v, f, initial_state={
+            "S": torch.zeros(1, 2, 4, 16, device=cuda),
+            "n": torch.zeros(1, 2, 16, device=cuda),
+            "m": torch.zeros(1, 2, device=cuda)})
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kmlstm.mlstm_scan(q, q, v, f.cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
+def test_reduced_ssm_serve_kernels_vs_plain(cuda, arch, dtype):
+    """Reduced xLSTM (4 layers: a list stack with an sLSTM) and Hymba (its
+    window 64 under 80 prompt tokens) on the card: prefill and 4
+    teacher-forced decode steps through the kernels against
+    ``kernels=ops.PLAIN``, with exact launch counts. Logits: f32 within
+    1e-4; bf16 within 5e-2, as the dense model's."""
+    layers = 4 if arch == "xlstm-125m" else 2
+    cfg = dataclasses.replace(get_config(arch).reduced(num_layers=layers),
+                              use_kernels=True, dtype=dtype)
+    params = T.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 80), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    runs = []
+    for kernels in (None, ops.PLAIN):
+        logits, cache, _ = T.prefill(cfg, params, toks, kernels=kernels)
+        cache = T.grow_cache(cfg, cache, 4)
+        outs = [logits]
+        for step in range(4):
+            logits, cache = T.decode_step(cfg, params, toks[:, step:step + 1],
+                                          cache, 80 + step, kernels=kernels)
+            outs.append(logits)
+        runs.append(torch.cat(outs, 1).float())
+    n = cfg.num_layers
+    counts = {k: c for k, c in ops.LAUNCHES.items() if c}
+    if arch == "hymba-1.5b":
+        assert counts == {"mlstm_scan": n, "flash_attention": n,
+                          "swiglu": 5 * n, "rmsnorm": 5 * (2 * n + 1)}
+    else:
+        assert counts == {"mlstm_scan": 3, "rmsnorm": 5}
     tol = 1e-4 if dtype == "float32" else 5e-2
     torch.testing.assert_close(runs[0], runs[1], rtol=tol, atol=tol)

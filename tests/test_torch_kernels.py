@@ -182,7 +182,7 @@ def test_build_compiles_every_source_into_one_library():
     names = [p.name for p in build.sources()]
     assert names == sorted(["fedavg_agg.cu", "fedavg_agg_quality.cu",
                             "flash_attention.cu",
-                            "mkp_utility.cu", "quantize_i8.cu",
+                            "mkp_utility.cu", "mlstm_scan.cu", "quantize_i8.cu",
                             "rmsnorm.cu", "segmented_topk.cu", "swiglu.cu"])
     assert build._lib_path().parent == build.BUILD_DIR
 

@@ -9,7 +9,11 @@ order of f32 sums (einsum, matmul, softmax, mean) and in ``pow`` /
 ``cos`` / ``rsqrt`` rounding: rtol = atol = 1e-5 on unit-scale values.
 The reduced SmolLM's logits (two layers, |logit| up to about 1.5) agreed
 to 2e-6 when this was written; they are held to rtol 1e-5 / atol 2e-5,
-and cached K/V (after RoPE) to atol 2e-5.
+and cached K/V (after RoPE) to atol 2e-5. The SSM and hybrid stacks
+(xLSTM with four layers, three mLSTM and one sLSTM; Hymba) add the
+chunked scan's exps and the sLSTM's step-by-step recurrence: their
+logits (|logit| up to about 4.5) agreed to 2.6e-5 and are held, with
+their caches, to rtol = atol = 1e-4.
 """
 import dataclasses
 
@@ -374,9 +378,184 @@ def test_init_decode_cache_matches_reference():
 
 
 @pytest.mark.parametrize("arch,over", [
-    ("qwen2-moe-a2.7b", {}), ("hymba-1.5b", {}), ("xlstm-125m", {}),
-    ("whisper-large-v3", {}), ("smollm-360m", {"remat": True})])
+    ("qwen2-moe-a2.7b", {}), ("internvl2-26b", {}),
+    ("llama4-scout-17b-a16e", {}), ("whisper-large-v3", {}),
+    ("smollm-360m", {"remat": True})])
 def test_unported_families_raise(arch, over):
+    """MoE (Qwen2-MoE, Llama 4 Scout), the vision frontend (InternVL2),
+    the encoder-decoder (Whisper) and remat are still cut."""
     cfg = get_config(arch, **over).reduced()
     with pytest.raises(NotImplementedError):
         T.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid stacks on carried weights
+# ---------------------------------------------------------------------------
+
+SSM_TOL = dict(rtol=1e-4, atol=1e-4)
+# variant: (arch, layers, prompt length). xLSTM at 4 layers is a list
+# stack with an sLSTM at position 3; at 2 layers two mLSTMs, stacked.
+# Hymba's window is 64 in the reduced config: its prompts are longer.
+SSM_VARIANTS = {"xlstm4": ("xlstm-125m", 4, 40),
+                "xlstm2": ("xlstm-125m", 2, 40),
+                "hymba": ("hymba-1.5b", 2, 80)}
+
+
+def ssm_pair(variant, dtype="float32"):
+    arch, layers, _ = SSM_VARIANTS[variant]
+    jcfg = dataclasses.replace(jget(arch).reduced(num_layers=layers),
+                               dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch).reduced(num_layers=layers),
+                              dtype=dtype)
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    return cfg, jcfg, T.params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                               jp)), jp
+
+
+def close_tree(port, other, path=""):
+    """Every leaf of a cache tree (lists and dicts) against the
+    reference's: positions exact, values within SSM_TOL."""
+    if isinstance(other, (list, tuple)):
+        assert isinstance(port, list) and len(port) == len(other), path
+        for i, (a, b) in enumerate(zip(port, other)):
+            close_tree(a, b, f"{path}[{i}]")
+    elif isinstance(other, dict):
+        assert sorted(port) == sorted(other), path
+        for k in other:
+            close_tree(port[k], other[k], f"{path}.{k}")
+    elif path.endswith("pos"):
+        np.testing.assert_array_equal(port.numpy(), np.asarray(other), path)
+    else:
+        assert tuple(port.shape) == other.shape, path
+        close(port, other, **SSM_TOL)
+
+
+@pytest.mark.parametrize("variant", list(SSM_VARIANTS))
+def test_ssm_forward_matches_reference(variant):
+    cfg, jcfg, p, jp = ssm_pair(variant)
+    assert isinstance(p["layers"], list) == (variant == "xlstm4")
+    S = SSM_VARIANTS[variant][2]
+    t, tj = tokens(2, S)
+    logits, aux = T.forward(cfg, p, t)
+    close(logits, JT.forward(jcfg, jp, tj)[0], **SSM_TOL)
+    assert float(aux) == 0.0
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+@pytest.mark.parametrize("variant", list(SSM_VARIANTS))
+def test_ssm_prefill_and_decode_match_reference(variant, kernels):
+    """Prefill (the caches built, Hymba's as a ring past its window),
+    grow_cache and 8 teacher-forced decode steps. With kernels on, the
+    port routes the scans through ``kernels.ops.mlstm_scan_bshd`` (on the
+    CPU its plain version) and the reference its attention and MLP
+    through its own ops."""
+    cfg, jcfg, p, jp = ssm_pair(variant)
+    cfg = dataclasses.replace(cfg, use_kernels=kernels)
+    kw = dict(flash_fn=jops.flash_attention_bshd,
+              swiglu_fn=jops.swiglu) if kernels else {}
+    S = SSM_VARIANTS[variant][2]
+    t, tj = tokens(2, S)
+    logits, cache, _ = T.prefill(cfg, p, t)
+    jlogits, jcache, _ = JT.prefill(jcfg, jp, tj, **kw)
+    close(logits, jlogits, **SSM_TOL)
+    close_tree(cache, jcache)
+    cache = T.grow_cache(cfg, cache, 8)
+    jcache = JT.grow_cache(jcfg, jcache, 8)
+    close_tree(cache, jcache)
+    for step in range(8):
+        feed, jfeed = tokens(2, 1, seed=100 + step)
+        logits, cache = T.decode_step(cfg, p, feed, cache, S + step)
+        jlogits, jcache = JT.decode_step(jcfg, jp, jfeed, jcache, S + step,
+                                         **kw)
+        close(logits, jlogits, **SSM_TOL)
+    close_tree(cache, jcache)
+
+
+@pytest.mark.parametrize("variant", list(SSM_VARIANTS))
+def test_ssm_init_decode_cache_matches_reference(variant):
+    """Zeros (and -1 positions) of the reference's shapes and dtypes, a
+    list for the mixed xLSTM stack, stacked (L, ...) otherwise."""
+    cfg, jcfg, _, _ = ssm_pair(variant, dtype="bfloat16")
+    got = T.init_decode_cache(cfg, 3, 40)
+    want = JT.init_decode_cache(jcfg, 3, 40)
+
+    def same(a, b, path=""):
+        if isinstance(b, (list, dict)):
+            assert type(a) is type(b) and len(a) == len(b), path
+            items = b.items() if isinstance(b, dict) else enumerate(b)
+            for k, v in items:
+                same(a[k], v, f"{path}/{k}")
+            return
+        assert a.dtype == getattr(torch, b.dtype.name), path
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(b, np.float32), path)
+    same(got, want)
+
+
+@pytest.mark.parametrize("variant", ["xlstm4", "hymba"])
+def test_params_from_jax_carries_list_and_stacked_trees(variant):
+    """bf16 leaves copied exactly into the reference's nesting: per-layer
+    dicts in a list for xLSTM's mixed stack, stacked (L, ...) for
+    Hymba; the port's own init draws the same tree; unported layer
+    params are refused."""
+    cfg, jcfg, p, jp = ssm_pair(variant, dtype="bfloat16")
+    flat = jax.tree_util.tree_leaves_with_path(jp)
+    for path, leaf in flat:
+        node = p
+        for key in path:
+            node = node[key.idx if hasattr(key, "idx") else key.key]
+        assert tuple(node.shape) == leaf.shape
+        assert node.dtype == torch.bfloat16
+        np.testing.assert_array_equal(node.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+    mine = T.init_params(cfg, torch.Generator().manual_seed(0))
+    assert common.count_params(mine) == jcommon.count_params(jp)
+    assert T.tree_map(lambda a: (tuple(a.shape), a.dtype), mine) == \
+        T.tree_map(lambda a: (tuple(a.shape), a.dtype), p)
+    if variant == "xlstm4":
+        assert [sorted(layer) == sorted(T.LAYER_KEYS[t]) for layer, t in
+                zip(p["layers"], cfg.layer_types)] == [True] * 4
+    else:
+        assert p["layers"]["mamba"]["w_bc"].shape[0] == cfg.num_layers
+    moe = get_config("qwen2-moe-a2.7b").reduced()
+    jmoe = JT.init_params(jget("qwen2-moe-a2.7b").reduced(),
+                          jax.random.PRNGKey(0))
+    with pytest.raises(NotImplementedError, match="ported"):
+        T.params_from_jax(jax.tree_util.tree_map(np.asarray, jmoe))
+    assert moe.layer_types[0] == "moe"
+
+
+@pytest.mark.parametrize("variant", list(SSM_VARIANTS))
+def test_ssm_kernel_routing_counts_each_op(variant):
+    """With ``use_kernels`` the prefill scans go through the namespace
+    (one per mLSTM layer or Hymba block) and decode adds none; Hymba's
+    norms, MLPs and attention take the dense stack's routes, while the
+    xLSTM blocks' own norms stay plain (only ``final_norm`` routes)."""
+    cfg, _, p, _ = ssm_pair(variant)
+    names = ("rmsnorm", "swiglu", "flash_attention_bshd", "mlstm_scan_bshd")
+    calls = dict.fromkeys(names, 0)
+
+    class Spy:
+        def __getattr__(self, name):
+            fn = getattr(ops.PLAIN, name)
+
+            def wrapped(*a, **k):
+                calls[name] += 1
+                return fn(*a, **k)
+            return wrapped
+
+    kcfg = dataclasses.replace(cfg, use_kernels=True)
+    t, _ = tokens(2, SSM_VARIANTS[variant][2])
+    _, cache, _ = T.prefill(kcfg, p, t, kernels=Spy())
+    cache = T.grow_cache(kcfg, cache, 2)
+    T.decode_step(kcfg, p, t[:, :1], cache, t.shape[1], kernels=Spy())
+    n = cfg.num_layers
+    scans = sum(x in ("mlstm", "hymba") for x in cfg.layer_types)
+    if variant == "hymba":
+        want = {"rmsnorm": 2 * (2 * n + 1), "swiglu": 2 * n,
+                "flash_attention_bshd": n, "mlstm_scan_bshd": n}
+    else:
+        want = {"rmsnorm": 2, "swiglu": 0, "flash_attention_bshd": 0,
+                "mlstm_scan_bshd": scans}
+    assert calls == want
