@@ -20,9 +20,12 @@ plain PyTorch version. Phases, one line each:
 6. each kernel, its plain version and its library yardstick timed with
    CUDA events (median of 20 replays of a CUDA graph of 10 back-to-back
    calls) at the shapes its path gives it, beside the kernel's bound
-   (``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's prefill shapes);
+   (``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's prefill shapes), and
+   the two top-k kernels' device time split by launch group
+   (``torch.profiler``);
 7. ``segmented_topk`` and ``mkp_utility`` against their plain versions on
-   the card (ties, -inf padding, k up to C, ragged n and m): exact;
+   the card (ties, -inf padding, all-equal rows, NaN and +-inf, k up to
+   C, one row over many blocks, ragged n and m): exact;
 8. the fleet intake: four tasks through
    ``FLServiceProvider.select_pools_batch`` over 1,000,000 clients in 8
    shards, routed through the per-shard frontier; picks equal the flat
@@ -36,7 +39,9 @@ plain PyTorch version. Phases, one line each:
 11. the codec kernels against their plain versions: ``topk_sparsify``,
     ``quantize_i8`` and ``dequantize_i8`` exact, ``fedavg_agg_quality_i8``
     within f32 tolerance, at the compressed loop's shapes and ragged
-    ones (chunks 100-512, zero chunks, saturation, ties, k from 1 to P);
+    ones (chunks 100-512, zero chunks, saturation, ties, k from 1 to P;
+    for the top-k also all-equal magnitudes, NaN and +-inf, one row over
+    many blocks, odd P);
 12. the compressed update plane: the service loop at CIFAR_CNN width
     with ``compression="int8"``, then ``"topk:0.05+int8"`` with the
     FedAdam server, 16 rounds each; every codec kernel launches once a
@@ -458,6 +463,46 @@ def time_ms(fn, samples: int = 20, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def kernel_times(fn) -> tuple:
+    """Run ``fn`` under ``torch.profiler``, recording CUDA activity only:
+    the host's ops would multiply the profiler's cost on xLSTM's
+    prefill, whose sLSTM steps launch about 90,000 small kernels.
+    Returns its result and ``{kernel name: (device ms, launches)}``,
+    the most device time first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and dev(e) > 0:
+            name = re.sub(r"\(.*", "", e.key.replace(
+                "(anonymous namespace)::", "").replace("<unnamed>::", "")
+                .removeprefix("void ")).strip()
+            ms, n = times.get(name, (0.0, 0))
+            times[name] = (ms + dev(e) / 1e3, n + e.count)
+    return out, dict(sorted(times.items(), key=lambda kv: -kv[1][0]))
+
+
+def launch_split(fn, calls: int = 10) -> dict:
+    """Device ms and launches of one call of ``fn`` by kernel name, over
+    ``calls`` calls after a warm-up: where a kernel of several launches
+    spends its time."""
+    fn()
+    torch.cuda.synchronize()
+    _, times = kernel_times(lambda: [fn() for _ in range(calls)])
+    return {name: {"ms": ms / calls, "launches": n / calls}
+            for name, (ms, n) in times.items()}
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{name} x{s['launches']:g} {s['ms']:.4f} ms"
+                     for name, s in split.items())
+
+
 def timing(fleet) -> dict:
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -483,13 +528,16 @@ def timing(fleet) -> dict:
     ms = time_ms(lambda: ops.segmented_topk(x, k))
     plain_ms = time_ms(lambda: ref.segmented_topk_ref(x, k))
     lib_ms = time_ms(lambda: torch.topk(x, k, dim=1))
+    split = launch_split(lambda: ops.segmented_topk(x, k))
     nbytes = S * C * 4 + S * k * 8
     out["segmented_topk"] = {"ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, **bound(nbytes, S * C)}
+                             "library_ms": lib_ms, **bound(nbytes, S * C),
+                             "split": split}
     lines.append(f"segmented_topk S={S} C={C} k={k}: kernel {ms:.4f} ms, "
                  f"plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms; "
                  f"bound {out['segmented_topk']['bound_ms']:.4f} ms "
-                 f"({nbytes} B)")
+                 f"({nbytes} B); one call by launch group: "
+                 + split_text(split))
 
     # mkp_utility on stage 2's first MKP over task 0's pool
     v, wt, r, sel = fleet["mkp_args"]
@@ -588,6 +636,9 @@ def compression_timing(u, w, out) -> list[str]:
             f", torch.topk(|U|) {t['library_ms']:.4f} ms"
         shape = f"({K}, {k})" if "top-k" in name or name == "dequantize_i8" \
             else f"({K}, {P})"
+        if name == "topk_sparsify":
+            t["split"] = launch_split(fn)
+            lib_s += "; one call by launch group: " + split_text(t["split"])
         lines.append(f"{name} {shape}: kernel {t['ms']:.4f} ms, plain "
                      f"{t['plain_ms']:.4f} ms{lib_s}; bound "
                      f"{t['bound_ms']:.4f} ms ({nbytes} B)")
@@ -804,16 +855,33 @@ def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+TOPK_KINDS = ("normal", "ties", "padded", "equal", "nan")
+
+
 def topk_case(S, C, kind, g):
     if kind == "ties":            # few distinct values: ties at every boundary
         return torch.randint(0, 5, (S, C), generator=g,
                              device="cuda").float() / 4
+    if kind == "equal":           # one value: the equals straddle chunks
+        return torch.full((S, C), 0.25, device="cuda")
     x = torch.randn(S, C, generator=g, device="cuda")
+    if kind == "nan":             # NaN above +inf above the rest, and -inf
+        x[:, ::7] = float("nan")
+        x[:, 3::11] = float("inf")
+        x[:, 5::13] = float("-inf")
     if kind == "padded":          # -inf padding, fewer finite entries than k
         x[:, C // 3:] = float("-inf")
         x[-1] = float("-inf")
         x[0, 1], x[0, 2] = -0.0, 0.0
     return x
+
+
+def topk_equal(got, exp) -> bool:
+    """Values bit for bit (NaN included) and lanes wherever the value is
+    not a -inf padding slot."""
+    kept = exp[0] != float("-inf")
+    return (torch.equal(got[0].view(torch.int32), exp[0].view(torch.int32))
+            and torch.equal(got[1][kept], exp[1][kept]))
 
 
 def new_kernels_vs_plain() -> dict:
@@ -823,19 +891,21 @@ def new_kernels_vs_plain() -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     n_topk = 0
     err = {}
-    for S, C, ks in ((8, SHARD_CAP, (1, 32, FLEET_K, SHARD_CAP)),
-                     (3, 1000, (7,))):
-        for kind in ("normal", "ties", "padded"):
+    for S, C, ks, kinds in (
+            # k = 2049: a short row merged from tiles, some all padding
+            (8, SHARD_CAP, (1, 32, 2049, FLEET_K, SHARD_CAP), TOPK_KINDS),
+            (3, 1000, (7,), TOPK_KINDS),
+            # one row over many blocks, k in the first chunk and mid-row
+            (1, 2**20 + 3, (FLEET_K, 2**19 + 1), ("normal", "equal", "nan"))):
+        for kind in kinds:
             x = topk_case(S, C, kind, g)
             for k in ks:
                 got = ops.segmented_topk(x, k)
                 exp = ref.segmented_topk_ref(x, k)
                 torch.cuda.synchronize()
-                fin = torch.isfinite(exp[0])
-                check(torch.equal(got[0], exp[0])
-                      and torch.equal(got[1][fin], exp[1][fin]),
+                check(topk_equal(got, exp),
                       f"segmented_topk S={S} C={C} k={k} {kind}: values and "
-                      f"finite lanes equal the plain version")
+                      f"lanes (but at -inf slots) equal the plain version")
                 if (S, C, k, kind) == (8, SHARD_CAP, FLEET_K, "normal"):
                     err["segmented_topk"] = float(
                         (got[0] - exp[0]).abs().max())
@@ -862,9 +932,11 @@ def new_kernels_vs_plain() -> dict:
                 err["mkp_utility"] = float((got[fin] - exp[fin]).abs().max())
             n_mkp += 1
     phase(7, f"segmented_topk vs plain: {n_topk} cases (S x C in 8x131072 "
-             f"with k in 1,32,4096,131072 and 3x1000 with k=7; normal, "
-             f"heavy ties, -inf padded with fewer finite than k) equal in "
-             f"values and finite lanes, repeat bit-identical; mkp_utility "
+             f"with k in 1,32,2049,4096,131072 and 3x1000 with k=7; normal, "
+             f"heavy ties, -inf padded with fewer finite than k, all equal, "
+             f"NaN and +-inf; one row of 2^20+3 over many blocks with k in "
+             f"4096,2^19+1, normal, all equal, NaN) equal in values and "
+             f"lanes but at -inf slots, repeat bit-identical; mkp_utility "
              f"vs plain: {n_mkp} cases (n in 1,19,3846,100003; m in "
              f"1,10,64) bit-equal")
     return err
@@ -1119,7 +1191,14 @@ def codec_case(K, P, kind, g):
         x = torch.randint(-3, 4, (K, P), generator=g, device="cuda") / 2.0
         x[0, : min(P, 2)] = torch.tensor([-0.0, 0.0], device="cuda")[:P]
         return x
+    if kind == "equal":           # one magnitude, both signs
+        return (torch.randint(0, 2, (K, P), generator=g, device="cuda")
+                - 0.5).float()
     x = torch.randn(K, P, generator=g, device="cuda")
+    if kind == "nan":             # |NaN| above +-inf above the rest
+        x[:, ::7] = float("nan")
+        x[:, 3::11] = float("inf")
+        x[:, 5::13] = float("-inf")
     if kind == "zeros":
         x[:, : max(1, P // 2)] = 0.0
         if P >= 4:
@@ -1182,11 +1261,35 @@ def codec_kernels_vs_plain() -> dict:
                 if (K, P, chunk, kind) == (MAIN_K, MAIN_TOPK, CHUNK, "normal"):
                     err["dequantize_i8"] = float((d - ed).abs().max())
                 n["quant"] += 1
+    # top-k only: one row over many blocks, k = P at the main width, odd P
+    # (rows off every vector boundary), a short row merged from tiles;
+    # all-equal magnitudes and NaN
+    for K, P, k in ((1, 2**20 + 3, 52_429), (MAIN_K, MAIN_P, MAIN_P),
+                    (MAIN_K, 100_001, 5003), (1, 100_003, 3000)):
+        for kind in ("normal", "ties", "equal", "nan"):
+            x = codec_case(K, P, kind, g)
+            got, exp = ops.topk_sparsify(x, k), ref.topk_sparsify_ref(x, k)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0].view(torch.int32),
+                              exp[0].view(torch.int32))
+                  and torch.equal(got[1], exp[1]),
+                  f"topk_sparsify K={K} P={P} k={k} {kind}: values (bit for "
+                  f"bit) and indices equal the plain version")
+            n["topk"] += 1
+    x = codec_case(MAIN_K, MAIN_P, "ties", g)
+    first = ops.topk_sparsify(x, MAIN_TOPK)
+    again = ops.topk_sparsify(x, MAIN_TOPK)
+    check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
+          "topk_sparsify repeats bit for bit at the main shape, heavy ties")
     err["topk_sparsify"] = 0.0    # every case above was equal
     phase(11, f"codec kernels vs plain on the card: topk_sparsify {n['topk']} "
               f"cases (K x P in 13x{MAIN_P}, 13x{MAIN_TOPK}, 1x7, 13x4097, "
               f"3x100003; k from 1 to P; normal, heavy ties of both signs, "
-              f"zero halves) equal in values and indices; quantize_i8 and "
+              f"zero halves; and one row of 2^20+3 over many blocks, k = P "
+              f"at 13x{MAIN_P}, 13x100001, 1x100003 with k=3000, each "
+              f"normal, ties, all-equal "
+              f"magnitudes and NaN and +-inf) equal in values and indices, "
+              f"repeat bit-identical; quantize_i8 and "
               f"dequantize_i8 bit-equal, fedavg_agg_quality_i8 within rtol "
               f"1e-5, in {n['quant']} cases (chunks 100, 128, 256, 512; zero "
               f"chunks keep scale 0, +-amax saturate at +-127); max |err| "
@@ -1515,26 +1618,15 @@ def ssm_full_width() -> dict:
 
 
 def device_profile(fn):
-    """Run ``fn`` under ``torch.profiler`` (CUDA activity). Returns its
-    result and (device ms summed over the kernels, the number of kernel
-    launches, the five kernels with the most device time as text). Only
-    the kernel events count, so the host's ops are not recorded: they
-    would multiply the profiler's cost on xLSTM's prefill, whose sLSTM
-    steps launch about 90,000 small kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev(e) > 0]
-    events.sort(key=dev, reverse=True)
-    total_ms = sum(dev(e) for e in events) / 1e3
-    top = ", ".join(f"{e.key[:48]} x{e.count} {dev(e) / 1e3:.2f} ms"
-                    for e in events[:5])
-    return out, (total_ms, sum(e.count for e in events), top)
+    """Run ``fn`` under ``torch.profiler`` (:func:`kernel_times`).
+    Returns its result and (device ms summed over the kernels, the
+    number of kernel launches, the five kernels with the most device
+    time as text)."""
+    out, times = kernel_times(fn)
+    top = ", ".join(f"{name[:48]} x{n} {ms:.2f} ms"
+                    for name, (ms, n) in list(times.items())[:5])
+    return out, (sum(ms for ms, _ in times.values()),
+                 sum(n for _, n in times.values()), top)
 
 
 def serve_entry_point() -> None:

@@ -4,8 +4,9 @@ They replace the JAX package's Pallas kernels in
 ``kernels/compression.py``:
 
 - ``topk_sparsify`` (``csrc/segmented_topk.cu``, ``topk_sparsify_f32``):
-  the magnitude top-k of each client delta, the segmented top-k's radix
-  select, compaction and bitonic sort keyed on |x|;
+  the magnitude top-k of each client delta, the segmented top-k's
+  launches (a radix select over many blocks a row, a compaction and a
+  bitonic sort) keyed on |x|;
 - ``quantize_i8`` and ``dequantize_i8`` (``csrc/quantize_i8.cu``):
   per-chunk symmetric int8 and its inverse, bit-equal to their plain
   versions;
@@ -24,10 +25,9 @@ import ctypes
 import torch
 
 from . import build
+from . import segmented_topk as _topk
 from .fedavg_agg import MAX_K, _check_max_k, num_blocks
-from .segmented_topk import MAX_C, sort_width
 
-_TOPK_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
 _QUANT_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_longlong,
                                             ctypes.c_int, ctypes.c_longlong)
 _AGG_I8_ARGTYPES = (ctypes.c_void_p,) * 8 + (
@@ -66,30 +66,13 @@ def _check_scales(values: torch.Tensor, scales: torch.Tensor,
 
 def topk_sparsify(x: torch.Tensor, k: int):
     """Launch the magnitude top-k. x: (K, P) float32, contiguous, P <=
-    ``MAX_C``; 1 <= k (clipped to P).
+    ``segmented_topk.MAX_C``; 1 <= k (clipped to P).
 
     Returns ``(values (K, k) f32, indices (K, k) int32)`` as
     :func:`repro_torch.kernels.ref.topk_sparsify_ref` defines them.
     Raises on any input the kernel does not take and on a failed launch.
     """
-    _check_2d("topk_sparsify", x, torch.float32)
-    K, P = x.shape
-    if P > MAX_C:
-        raise ValueError(f"topk_sparsify takes P <= {MAX_C}, got {P}")
-    k = min(int(k), P)
-    if k < 1:
-        raise ValueError(f"topk_sparsify needs k >= 1, got {k}")
-    kp = sort_width(k)
-    dev = x.device
-    vals = torch.empty(K, k, dtype=torch.float32, device=dev)
-    idx = torch.empty(K, k, dtype=torch.int32, device=dev)
-    buf = torch.empty(K, kp, dtype=torch.int64, device=dev)
-    scratch = torch.empty(2, K, dtype=torch.int32, device=dev)
-    build.launch(build.entry("topk_sparsify_f32", _TOPK_ARGTYPES), dev,
-                 x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                 buf.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-                 K, P, k, kp)
-    return vals, idx
+    return _topk.launch("topk_sparsify_f32", x, k)
 
 
 def quantize_i8(x: torch.Tensor, chunk: int = 256):

@@ -276,6 +276,22 @@ def test_kernel_bindings_refuse_cpu_tensors():
         kc.fedavg_agg_quality_i8(v, torch.zeros(2, 1), torch.ones(2))
 
 
+@pytest.mark.parametrize("text", ["topk:0.05+int8", "topk:0.1", "topk:1"])
+@pytest.mark.parametrize("P", [1_070_794, 206_922, 4097, 7])
+def test_topk_codec_launch_geometry(text, P):
+    """What the top-k kernel's wrapper derives at each codec's k: the
+    sort width holds k, and the chunks of a row cover it with no empty
+    block."""
+    from repro_torch.kernels import segmented_topk as st
+    K = 13
+    k = comp.CompressionSpec.parse(text).k_for(P)
+    assert 1 <= k <= P
+    kp = st.sort_width(k)
+    assert kp >= k and kp & (kp - 1) == 0 and kp < 2 * k
+    chunk, chunks = st.geometry(K, P, 132)
+    assert (chunks - 1) * chunk < P <= chunks * chunk and chunk % 4 == 0
+
+
 # ---------------------------------------------------------------------------
 # the codec layer
 # ---------------------------------------------------------------------------

@@ -232,9 +232,11 @@ def test_device_chunk_repeats_under_the_library_pin(cuda):
 # ---------------------------------------------------------------------------
 
 def assert_topk_equal(got, exp):
-    assert torch.equal(got[0], exp[0])
-    fin = torch.isfinite(exp[0])
-    assert torch.equal(got[1][fin], exp[1][fin])
+    """Values bit for bit (NaN included), lanes wherever the value is not
+    a -inf padding slot."""
+    assert torch.equal(got[0].view(torch.int32), exp[0].view(torch.int32))
+    kept = exp[0] != float("-inf")
+    assert torch.equal(got[1][kept], exp[1][kept])
 
 
 def topk_input(S, C, kind, cuda):
@@ -244,19 +246,35 @@ def topk_input(S, C, kind, cuda):
     if kind == "ties":          # few distinct values: ties at every boundary
         return torch.randint(0, 5, (S, C), generator=g,
                              device=cuda).float() / 4
-    x = torch.randn(S, C, generator=g, device=cuda)  # -inf padded rows
-    x[:, C // 3:] = float("-inf")
+    if kind == "equal":         # one value: the equals straddle chunks
+        return torch.full((S, C), 0.25, device=cuda)
+    x = torch.randn(S, C, generator=g, device=cuda)
+    if kind == "nan":           # NaN above +inf, then +inf; -inf below all
+        x[:, ::7] = float("nan")
+        x[:, 3::11] = float("inf")
+        x[:, 5::13] = float("-inf")
+        return x
+    x[:, C // 3:] = float("-inf")  # -inf padded rows
     x[-1] = float("-inf")
     if C > 2:
         x[0, 1], x[0, 2] = -0.0, 0.0
     return x
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties", "padded"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "padded", "equal",
+                                  "nan"])
 @pytest.mark.parametrize("S,C,k", [(3, 1000, 7), (8, 131072, 1),
                                    (8, 131072, 32), (8, 131072, 4096),
                                    (2, 131072, 131072), (5, 9000, 4097),
-                                   (1, 1, 1), (4, 77, 100)])
+                                   (1, 1, 1), (4, 77, 100),
+                                   # one row over many blocks; k mid-row
+                                   (1, 2**20 + 3, 4096),
+                                   (1, 2**20 + 3, 2**19 + 1),
+                                   # short rows merged from tiles, some
+                                   # of padding only
+                                   (2, 9000, 2049), (6, 5000, 300),
+                                   # odd C: rows off every vector boundary
+                                   (13, 100_001, 5003)])
 def test_segmented_topk_matches_plain(cuda, S, C, k, kind):
     x = topk_input(S, C, kind, cuda)
     before = ops.LAUNCHES["segmented_topk"]
@@ -271,6 +289,14 @@ def test_segmented_topk_is_deterministic(cuda):
     x = topk_input(8, 131072, "ties", cuda)
     a, b = ops.segmented_topk(x, 4096), ops.segmented_topk(x, 4096)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_topk_sparsify_is_deterministic(cuda):
+    x = codec_input(13, MAIN_P, "ties", cuda)
+    a = ops.topk_sparsify(x, MAIN_TOPK)
+    for _ in range(3):
+        b = ops.topk_sparsify(x, MAIN_TOPK)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_segmented_topk_refuses_bad_inputs(cuda):
@@ -404,7 +430,14 @@ def codec_input(K, P, kind, cuda):
         x = torch.randint(-3, 4, (K, P), generator=g, device=cuda) / 2.0
         x[0, : min(P, 2)] = torch.tensor([-0.0, 0.0], device=cuda)[:P]
         return x
+    if kind == "equal":         # one magnitude, both signs
+        return (torch.randint(0, 2, (K, P), generator=g, device=cuda)
+                - 0.5).float()
     x = torch.randn(K, P, generator=g, device=cuda)
+    if kind == "nan":           # |NaN| above +-inf above the rest
+        x[:, ::7] = float("nan")
+        x[:, 3::11] = float("inf")
+        x[:, 5::13] = float("-inf")
     if kind == "zeros":
         x[:, : max(1, P // 2)] = 0.0
         if P >= 4:
@@ -413,10 +446,18 @@ def codec_input(K, P, kind, cuda):
     return x
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "equal",
+                                  "nan"])
 @pytest.mark.parametrize("K,P,k", [(1, 7, 1), (1, 7, 7), (13, 4097, 1),
                                    (13, 4097, 4097), (3, 100_003, 777),
-                                   (13, MAIN_P, MAIN_TOPK)])
+                                   (13, MAIN_P, MAIN_TOPK),
+                                   # one row over many blocks
+                                   (1, 2**20 + 3, 52_429),
+                                   (13, MAIN_P, MAIN_P),
+                                   # a short row merged from tiles
+                                   (1, 100_003, 3000),
+                                   # odd P: rows off every vector boundary
+                                   (13, 100_001, 5003)])
 def test_topk_sparsify_matches_plain(cuda, K, P, k, kind):
     x = codec_input(K, P, kind, cuda)
     before = ops.LAUNCHES["topk_sparsify"]
@@ -424,7 +465,33 @@ def test_topk_sparsify_matches_plain(cuda, K, P, k, kind):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["topk_sparsify"] == before + 1
     exp = ref.topk_sparsify_ref(x, k)
-    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    assert torch.equal(got[0].view(torch.int32), exp[0].view(torch.int32))
+    assert torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("name", ["segmented_topk", "topk_sparsify"])
+def test_topk_replays_in_a_cuda_graph(cuda, name):
+    """Captured once, replayed on new inputs in the same memory: each
+    replay equals an uncaptured call (scratch is zeroed on the stream,
+    nothing is read back to the host)."""
+    op = getattr(ops, name)
+    S, C, k = (8, 131072, 4096) if name == "segmented_topk" else \
+        (13, MAIN_P, MAIN_TOPK)
+    x = topk_input(S, C, "ties", cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(x, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = op(x, k)
+    for kind in ("ties", "normal", "padded"):
+        x.copy_(topk_input(S, C, kind, cuda))
+        graph.replay()
+        exp = op(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], exp[0]) and torch.equal(out[1], exp[1])
 
 
 @pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])

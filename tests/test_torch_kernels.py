@@ -8,7 +8,8 @@ CUDA kernels themselves are held against the plain versions on the card
   and bf16;
 - ``segmented_topk`` over the shape sweep of tests/test_scale_plane.py
   and at small C, with lowest-lane ties and -inf padding: exact (values
-  and lanes of every finite entry);
+  and lanes of every finite entry); the CUDA wrapper's chunks a row and
+  scratch size, against the source's layout;
 - ``mkp_utility`` over ragged n x m;
 - ``rmsnorm``, ``swiglu`` and ``flash_attention`` over the sweeps of
   tests/test_kernels.py (causal MHA / GQA / MQA, sliding windows, Sq=1
@@ -267,6 +268,30 @@ def test_segmented_topk_kernel_refuses_cpu_tensors():
 def test_segmented_topk_sort_width():
     assert [segmented_topk.sort_width(k) for k in (1, 2, 3, 4096, 4097)] == \
         [1, 2, 4, 4096, 8192]
+
+
+@pytest.mark.parametrize("num_sms", [1, 8, 132])
+@pytest.mark.parametrize("S,C", [(8, 131_072), (13, 1_070_794), (1, 2**20 + 3),
+                                 (1, 1), (1, 7), (4, 77), (13, 4097),
+                                 (3, 100_003), (13, 100_001), (65_535, 5)])
+def test_segmented_topk_chunks_cover_every_row(S, C, num_sms):
+    """Each block of a row gets a non-empty chunk whose lanes start on a
+    boundary of every vector width, and the chunks cover the row."""
+    chunk, chunks = segmented_topk.geometry(S, C, num_sms)
+    assert chunk % 4 == 0 and 1 <= chunks <= segmented_topk.MAX_CHUNKS
+    starts = np.arange(chunks) * chunk
+    assert starts[-1] < C <= chunks * chunk
+    lanes = np.concatenate([np.arange(a, min(a + chunk, C)) for a in starts])
+    np.testing.assert_array_equal(lanes, np.arange(C))
+
+
+def test_segmented_topk_fills_the_card_at_path_shapes():
+    """At the fleet frontier and the compressed plane, rows x chunks put
+    at least one select block on every SM of an H100 (132)."""
+    for S, C, want in ((8, 131_072, (4096, 32)),
+                       (13, 1_070_794, (26_120, 41))):
+        chunk, chunks = segmented_topk.geometry(S, C, 132)
+        assert (chunk, chunks) == want and S * chunks >= 132
 
 
 # ---------------------------------------------------------------------------
