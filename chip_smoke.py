@@ -20,7 +20,9 @@ plain PyTorch version. Phases, one line each:
 6. each kernel, its plain version and its library yardstick timed with
    CUDA events (median of 20 replays of a CUDA graph of 10 back-to-back
    calls) at the shapes its path gives it, beside the kernel's bound
-   (``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's prefill shapes), and
+   (``mlstm_scan`` and ``flash_attention`` at xLSTM-125M's or SmolLM-360M's
+   and at Hymba-1.5B's prefill shapes, ``rmsnorm`` and ``swiglu`` at
+   prefill and at a decode step), and
    the two top-k kernels' device time split by launch group
    (``torch.profiler``);
 7. ``segmented_topk`` and ``mkp_utility`` against their plain versions on
@@ -50,7 +52,8 @@ plain PyTorch version. Phases, one line each:
 13. ``compression="none"`` gives the uncompressed chunk bit for bit;
 14. the serve path's kernels against their plain versions on the card,
     f32 and bf16: ``rmsnorm``, ``swiglu`` and ``flash_attention`` at the
-    serve shapes and the reference's test sweeps (MHA, GQA, MQA, windows
+    serve shapes (SmolLM-360M's, and Hymba-1.5B's windowed attention and
+    D of 1,600) and the reference's test sweeps (MHA, GQA, MQA, windows
     8 and 16, Sq=1 against Sk, non-causal, ragged S; ragged M, D, F);
 15. the serve path at full width: SmolLM-360M, bf16, random weights from
     a seed, 8 prompts of 1,024 tokens and 32 new tokens through
@@ -651,10 +654,12 @@ def compression_timing(u, w, out) -> list[str]:
 def serve_timing(out) -> list[str]:
     """The serve path's kernels at the shapes SmolLM-360M's full-width
     serve gives them (bf16): prefill (8 x 1,024 tokens) and, for rmsnorm
-    and swiglu, a decode step (8 tokens). Fills ``out`` and returns the
-    phase-6 lines. Library yardsticks the port never calls:
+    and swiglu, a decode step (8 tokens); flash_attention also at
+    Hymba-1.5B's windowed prefill (4 x 2,048 tokens). Fills ``out`` and
+    returns the phase-6 lines. Library yardsticks the port never calls:
     ``F.rms_norm``, ``x @ w_gate`` alone (no one call computes SwiGLU)
-    and ``F.scaled_dot_product_attention`` (causal, GQA)."""
+    and ``F.scaled_dot_product_attention`` (causal, GQA; at Hymba's shape
+    with the window as a boolean mask)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -665,8 +670,6 @@ def serve_timing(out) -> list[str]:
     B, S, H, G, hd = SERVE_B, SERVE_PROMPT, SERVE_H, SERVE_G, SERVE_HD
     scale = rn(D)
     wg, wu = rn(D, Fd, s=D ** -0.5), rn(D, Fd, s=D ** -0.5)
-    q, k, v = rn(B, S, H, hd), rn(B, S, G, hd), rn(B, S, G, hd)
-    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     lines = []
 
     def timed(m, x):
@@ -684,13 +687,32 @@ def serve_timing(out) -> list[str]:
 
     norm, mlp = timed(M, rn(M, D))
     norm["at_decode"], mlp["at_decode"] = timed(SERVE_B, rn(SERVE_B, D))
-    pairs = S * (S + 1) // 2                     # causal (q, k) pairs
-    attn = {"ms": time_ms(lambda: ops.flash_attention_bshd(q, k, v)),
-            "plain_ms": time_ms(lambda: ref.flash_attention_ref(qt, kt, vt)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            **bound(2 * (2 * B * H * S * hd + 2 * B * G * S * hd),
-                    4 * B * H * hd * pairs, PEAK_BF16_FLOPS)}
+
+    def attn_timed(B, S, H, G, window, lib):
+        """Causal attention over (B, S, H, hd) views; the bound counts the
+        (q, k) pairs the mask keeps."""
+        q, k, v = rn(B, S, H, hd), rn(B, S, G, hd), rn(B, S, G, hd)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+        return {"ms": time_ms(lambda: ops.flash_attention_bshd(
+                    q, k, v, window=window)),
+                "plain_ms": time_ms(lambda: ref.flash_attention_ref(
+                    qt, kt, vt, window=window)),
+                "library_ms": time_ms(lambda: lib(qt, kt, vt)),
+                **bound(2 * (2 * B * H * S * hd + 2 * B * G * S * hd),
+                        4 * B * H * hd * pairs, PEAK_BF16_FLOPS)}
+
+    attn = attn_timed(B, S, H, G, 0, lambda qt, kt, vt: (
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)))
+    # Hymba-1.5B's prefill: 25 / 5 heads, a 1,024-token window; SDPA takes
+    # the window as a boolean mask, off its flash path
+    hb, hs, hh, hg, hw = SSM_B, SSM_PROMPT, 25, 5, 1024
+    pos = torch.arange(hs, device="cuda")
+    win = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - hw)
+    attn["at_hymba"] = attn_timed(hb, hs, hh, hg, hw, lambda qt, kt, vt: (
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=win,
+                                       enable_gqa=True)))
     out.update(rmsnorm=norm, swiglu=mlp, flash_attention=attn)
     for name, t, shape, lib in (
             ("rmsnorm", norm, f"({M}, {D})", "F.rms_norm"),
@@ -700,7 +722,10 @@ def serve_timing(out) -> list[str]:
             ("swiglu decode", mlp["at_decode"], f"M={SERVE_B} D={D} F={Fd}",
              "x @ w_gate alone"),
             ("flash_attention", attn, f"q ({B}, {H}, {S}, {hd}) causal GQA "
-             f"G={G}, (B, S, H, hd) views", "SDPA causal GQA")):
+             f"G={G}, (B, S, H, hd) views", "SDPA causal GQA"),
+            ("flash_attention at Hymba-1.5B's prefill", attn["at_hymba"],
+             f"q ({hb}, {hh}, {hs}, {hd}) G={hg} causal, window {hw}",
+             "SDPA with the window as a mask")):
         lines.append(f"{name} {shape} bf16: kernel {t['ms']:.4f} ms, plain "
                      f"{t['plain_ms']:.4f} ms, {lib} {t['library_ms']:.4f} "
                      f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
@@ -1393,7 +1418,11 @@ def serve_kernels_vs_plain() -> dict:
     M, D, Fd = SERVE_B * SERVE_PROMPT, SERVE_D, SERVE_F
     serve_attn = (SERVE_B, SERVE_H, SERVE_G, SERVE_PROMPT, SERVE_PROMPT,
                   SERVE_HD, True, 0)
-    attn_cases = [serve_attn, (1, 2, 2, 32, 32, 16, True, 0),
+    # Hymba-1.5B's prefill: 25 / 5 heads, a 1,024-token window, and its
+    # D of 1,600 at prefill and at a decode step
+    hymba_attn = (SSM_B, 25, 5, SSM_PROMPT, SSM_PROMPT, 64, True, 1024)
+    hymba_norm = ((SSM_B * SSM_PROMPT, 1600), (SSM_B, 1, 1600))
+    attn_cases = [serve_attn, hymba_attn, (1, 2, 2, 32, 32, 16, True, 0),
                   (2, 4, 2, 64, 64, 32, True, 0),
                   (1, 8, 1, 48, 48, 64, True, 0),
                   (1, 2, 1, 64, 64, 16, True, 8),
@@ -1405,7 +1434,8 @@ def serve_kernels_vs_plain() -> dict:
                   (1, 2, 1, 50, 50, 48, True, 0),
                   (1, 2, 2, 33, 65, 256, True, 0)]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((M, D), (SERVE_B, 1, D), (4, 50), (3, 5, 128), (1, 1)):
+        for shape in ((M, D), (SERVE_B, 1, D), *hymba_norm, (4, 50),
+                      (3, 5, 128), (1, 1)):
             x, s = rn(shape, dtype, 3.0), rn(shape[-1:], dtype)
             held("rmsnorm", (shape, dtype), ops.rmsnorm(x, s),
                  ref.rmsnorm_ref(x, s))
@@ -1430,18 +1460,25 @@ def serve_kernels_vs_plain() -> dict:
     main = {"rmsnorm": err["rmsnorm", ((M, D), bf)],
             "swiglu": err["swiglu", ((M, D, Fd), bf)],
             "flash_attention": err["flash_attention", (serve_attn, bf)]}
+    at_hymba = {"rmsnorm prefill": err["rmsnorm", (hymba_norm[0], bf)],
+                "rmsnorm decode": err["rmsnorm", (hymba_norm[1], bf)],
+                "flash_attention": err["flash_attention", (hymba_attn, bf)]}
     worst = {name: max(e for (k, _), e in err.items() if k == name)
              for name in SERVE_TOL}
     phase(14, f"serve kernels vs plain on the card, f32 and bf16: rmsnorm "
               f"{n['rmsnorm']} cases (rows x D in {M}x{D}, {SERVE_B}x{D}, "
-              f"4x50, 15x128, 1x1), swiglu {n['swiglu']} (M, D, F in "
+              f"{SSM_B * SSM_PROMPT}x1600, {SSM_B}x1600, 4x50, 15x128, 1x1), "
+              f"swiglu {n['swiglu']} (M, D, F in "
               f"({M}, {D}, {Fd}), ({SERVE_B}, {D}, {Fd}) and ragged), "
               f"flash_attention {n['flash_attention']} ((B, H, G, Sq, Sk, hd) "
-              f"= {serve_attn[:6]} causal and the reference's sweep: MHA, GQA, "
+              f"= {serve_attn[:6]} causal, Hymba-1.5B's {hymba_attn[:6]} "
+              f"with window {hymba_attn[7]}, and the reference's sweep: MHA, GQA, "
               f"MQA, windows 8/16/100, Sq=1, non-causal, ragged S, hd 48 and "
               f"256), all within the stated tolerances; max |err| at the "
               f"serve shapes in bf16: "
               + ", ".join(f"{k} {v:.3e}" for k, v in main.items())
+              + "; at Hymba-1.5B's: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in at_hymba.items())
               + "; largest over all cases: "
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return main
@@ -1545,7 +1582,8 @@ def full_width_serve(phase_n: int, arch: str, B: int, prompt: int,
           f"{arch} kernel vs plain {float(d_kp.max())} <= 5 % of max "
           f"|logit| {top}")
     steps = SERVE_NEW - 1
-    (pre_dev, pre_n, pre_top), (dec_dev, dec_n, dec_top) = profiles
+    (pre_dev, pre_n, pre_top, pre_ours), (dec_dev, dec_n, dec_top, _) = \
+        profiles
     dec_dev /= SERVE_TF
     busy = ("not measured (the profiler saw no device time)" if not dec_dev
             else f"{dec_dev / (t_dec / steps * 1e3) * 100:.1f} %")
@@ -1565,7 +1603,8 @@ def full_width_serve(phase_n: int, arch: str, B: int, prompt: int,
               f"{float(d_pf[0]):.4f} / {float(d_pf[1:].max()):.4f}; max "
               f"|logit| {top:.3f}); argmax agrees at {agree * 100:.1f} % of "
               f"positions; torch.profiler device time, kernel path: prefill "
-              f"{pre_dev:.2f} ms in {pre_n} kernels (top: {pre_top}), decode "
+              f"{pre_dev:.2f} ms in {pre_n} kernels (top: {pre_top}; the "
+              f"port's own: {pre_ours}), decode "
               f"{dec_dev:.3f} ms a step in {dec_n / SERVE_TF:.0f} kernels a "
               f"step (top: {dec_top}), so the device is busy {busy} of a "
               f"decode step's wall")
@@ -1617,16 +1656,24 @@ def ssm_full_width() -> dict:
                        "rmsnorm": (2 * L + 1) * SERVE_NEW})}
 
 
+# The names of the serve path's hand-written kernels, as the profiler
+# reports them
+SERVE_KERNEL_NAMES = re.compile(r"(fa_|rmsnorm|swiglu|mlstm_scan)")
+
+
 def device_profile(fn):
     """Run ``fn`` under ``torch.profiler`` (:func:`kernel_times`).
     Returns its result and (device ms summed over the kernels, the
     number of kernel launches, the five kernels with the most device
-    time as text)."""
+    time as text, the serve path's own kernels as text)."""
     out, times = kernel_times(fn)
-    top = ", ".join(f"{name[:48]} x{n} {ms:.2f} ms"
-                    for name, (ms, n) in list(times.items())[:5])
+    text = lambda items: ", ".join(f"{name[:48]} x{n} {ms:.2f} ms"
+                                   for name, (ms, n) in items)
+    top = text(list(times.items())[:5])
+    ours = text((name, t) for name, t in times.items()
+                if SERVE_KERNEL_NAMES.match(name))
     return out, (sum(ms for ms, _ in times.values()),
-                 sum(n for _, n in times.values()), top)
+                 sum(n for _, n in times.values()), top, ours)
 
 
 def serve_entry_point() -> None:

@@ -9,13 +9,22 @@
 // Bound: bytes. It must read M*D + D elements and write M*D: at the serve
 // path's prefill shape (8 x 1,024 rows, D = 960, bf16) that is 31.5 MB, about
 // 9.4 us at 3.35 TB/s; at a decode step's (8, 960) it is 32 KB, well under a
-// microsecond, so a launch costs more than the bytes there.
+// microsecond, so there the launch and the memory round trips the kernel
+// waits on are the cost.
 //
-// Design: one warp per row, eight rows a block. Pass 1 sums the squares with
-// 16-byte loads (8 bf16 or 4 f32 a lane, neighbouring lanes on neighbouring
-// addresses) where D and the row start allow it, and element loads
-// otherwise; a butterfly of shuffles gives every lane the sum. Pass 2 reads
-// the row again (from L1/L2: a 1.9 KB row stays there) and writes it.
+// Design: one warp per row, eight rows a block. Where D and the row start
+// allow 16-byte loads (8 bf16 or 4 f32 a lane, neighbouring lanes on
+// neighbouring addresses) and the row fits in R <= 8 such vectors a lane
+// (2,048 bf16 or 1,024 f32, which covers SmolLM's D of 960 and Hymba's
+// 1,600), the warp loads its row's vectors of x and the matching vectors of
+// the scale in one pass into registers (rmsnorm_regs_kernel<T, R>, R the
+// smallest power of two that holds the row), sums the squares, reduces with
+// a butterfly of shuffles and writes from the same registers: x is read
+// once and the warp waits on one round trip to memory, not two. Other rows
+// take the loop (rmsnorm_kernel): pass 1 sums the squares (16-byte loads
+// where allowed, element loads otherwise), pass 2 reads the row again (from
+// L1/L2) and writes it. Both sum each lane's squares in the same order, so
+// the two give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,14 +95,75 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restri
   }
 }
 
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+rmsnorm_regs_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ out,
+                    int M, int D, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * D;
+  T* orow = out + (size_t)row * D;
+  uint4 xv[R], sv[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {  // every load of the row issued before any use
+    const int c = (i * 32 + lane) * kVec;
+    if (c < D) {
+      xv[i] = __ldg(reinterpret_cast<const uint4*>(xr + c));
+      sv[i] = __ldg(reinterpret_cast<const uint4*>(scale + c));
+    }
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if ((i * 32 + lane) * kVec < D) {
+      const T* v = reinterpret_cast<const T*>(&xv[i]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float f = to_f32(v[e]);
+        ss = __fmaf_rn(f, f, ss);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xFFFFFFFFu, ss, o);
+  const float r = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)D), eps));
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int c = (i * 32 + lane) * kVec;
+    if (c < D) {
+      const T* v = reinterpret_cast<const T*>(&xv[i]);
+      const T* s = reinterpret_cast<const T*>(&sv[i]);
+      uint4 res;
+      T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) o[e] = norm_one(v[e], r, s[e]);
+      *reinterpret_cast<uint4*>(orow + c) = res;
+    }
+  }
+}
+
 template <typename T>
-int run(const void* x, const void* scale, void* out, int M, int D, float eps, int vec,
+int run(const void* x, const void* scale, void* out, int M, int D, float eps, int vec, int regs,
         void* stream) {
-  if (M < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(T);
+  if (M < 1 || D < 1 || (regs && (!vec || D > 32 * regs * kVec)))
+    return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((M + kWarps - 1) / kWarps);
-  rmsnorm_kernel<T><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<T*>(out), M, D, eps,
-      vec);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* xx = static_cast<const T*>(x);
+  const T* ss = static_cast<const T*>(scale);
+  T* oo = static_cast<T*>(out);
+  switch (regs) {
+    case 0: rmsnorm_kernel<T><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps, vec); break;
+    case 1: rmsnorm_regs_kernel<T, 1><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+    case 2: rmsnorm_regs_kernel<T, 2><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+    case 4: rmsnorm_regs_kernel<T, 4><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+    case 8: rmsnorm_regs_kernel<T, 8><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -102,14 +172,16 @@ int run(const void* x, const void* scale, void* out, int M, int D, float eps, in
 // C interface, bound with ctypes. x and out (M, D) row-major, scale (D,), all
 // f32 (rmsnorm_f32) or all bf16 (rmsnorm_bf16). vec != 0 asks for 16-byte
 // loads: the caller sets it only when D is a multiple of 16 / itemsize and
-// x, scale and out start on 16-byte boundaries. Returns 0 or the CUDA error
-// code of a failed launch.
+// x, scale and out start on 16-byte boundaries. regs in {1, 2, 4, 8} takes
+// the register kernel with that many 16-byte vectors a lane (needs vec and
+// D <= 32 * regs * 16 / itemsize); 0 takes the loop. Returns 0 or the CUDA
+// error code of a failed launch.
 extern "C" int rmsnorm_f32(const void* x, const void* scale, void* out, int M, int D, float eps,
-                           int vec, void* stream) {
-  return run<float>(x, scale, out, M, D, eps, vec, stream);
+                           int vec, int regs, void* stream) {
+  return run<float>(x, scale, out, M, D, eps, vec, regs, stream);
 }
 
 extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out, int M, int D,
-                            float eps, int vec, void* stream) {
-  return run<__nv_bfloat16>(x, scale, out, M, D, eps, vec, stream);
+                            float eps, int vec, int regs, void* stream) {
+  return run<__nv_bfloat16>(x, scale, out, M, D, eps, vec, regs, stream);
 }

@@ -2,12 +2,14 @@
 
 It replaces the JAX package's Pallas kernel
 ``kernels/flash_attention.py::flash_attention``: causal / sliding-window
-GQA attention with an online softmax in f32. bf16 at head sizes 16, 32,
-64 and 128 runs on the tensor cores (mma.sync); f32 and other head sizes
-up to 256 run a CUDA-core kernel (see the source for the bound and both
-designs). The kernel takes strides, so (B, S, H, hd) tensors viewed as
-(B, H, S, hd) are read and written in place. Built with the port's other
-kernels at first use (:mod:`repro_torch.kernels.build`).
+GQA attention with an online softmax in f32. bf16 at head sizes 64 and
+128 runs the Hopper kernel (``wgmma`` over a ring of TMA loads, warp
+specialised); bf16 at 16 and 32 runs on the tensor cores through
+``mma.sync``; f32 and other head sizes up to 256 run a CUDA-core kernel
+(see the source for the bound and the designs). The kernels take
+strides, so (B, S, H, hd) tensors viewed as (B, H, S, hd) are read and
+written in place. Built with the port's other kernels at first use
+(:mod:`repro_torch.kernels.build`).
 """
 from __future__ import annotations
 
@@ -18,16 +20,46 @@ import torch
 from . import build
 
 MAX_HD = 256
-MMA_HD = (16, 32, 64, 128)
+# The head sizes each bf16 tensor-core kernel takes; f32, and bf16 at
+# any other hd, take the CUDA-core kernel ("simple").
+ROUTE_HD = {"wgmma": (64, 128), "mma": (16, 32)}
+ROUTES = {"simple": 0, "mma": 1, "wgmma": 2}   # the C entry's route argument
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,) * 12
              + (ctypes.c_int,) * 6 + (ctypes.c_float,)
              + (ctypes.c_int,) * 4)
 
 
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a call of this type and head size takes: "wgmma" (the
+    Hopper kernel), "mma" (``mma.sync``) or "simple" (CUDA cores)."""
+    if dtype == torch.bfloat16:
+        for name, hds in ROUTE_HD.items():
+            if hd in hds:
+                return name
+    return "simple"
+
+
 def uses_mma(dtype: torch.dtype, hd: int) -> bool:
-    """Whether a call takes the tensor-core kernel."""
-    return dtype == torch.bfloat16 and hd in MMA_HD
+    """Whether a call takes either tensor-core kernel: ``mma.sync`` (hd 16
+    and 32) or ``wgmma`` (hd 64 and 128)."""
+    return route(dtype, hd) != "simple"
+
+
+def uses_wgmma(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a call takes the Hopper kernel (``wgmma`` fed by TMA)."""
+    return route(dtype, hd) == "wgmma"
+
+
+def tma_describable(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map can describe ``t`` (B, heads, S, hd) in
+    place: its first element on a 16-byte boundary, hd contiguous and
+    every other stride a positive multiple of 16 bytes below 2**40 bytes
+    (a unit axis takes any stride). Otherwise the wrapper copies it."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(n == 1 or (0 < st * size < 2 ** 40 and st * size % 16 == 0)
+                    for n, st in zip(t.shape[:3], t.stride()[:3])))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,14 +100,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (causal or window > 0) and Sq > Sk:
         raise ValueError(f"causal or windowed attention with Sq={Sq} > "
                          f"Sk={Sk} leaves query rows with no key")
-    mma = uses_mma(q.dtype, hd)
+    kernel = route(q.dtype, hd)
 
     def ready(t):
-        """hd contiguous; for the tensor-core kernel also 16-byte rows."""
-        if t.stride(3) != 1 or (mma and (not build.aligned16(t) or any(
-                t.stride(i) % 8 for i in range(3)))):
-            return t.contiguous()
-        return t
+        """hd contiguous; for the tensor-core kernels also 16-byte rows."""
+        if kernel == "simple":
+            return t if t.stride(3) == 1 else t.contiguous()
+        return t if tma_describable(t) else t.contiguous()
     q, k, v = ready(q), ready(k), ready(v)
     out = torch.empty_like(q)
     scale = hd ** -0.5 if scale is None else float(scale)
@@ -83,5 +114,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], B, H, G, Sq, Sk, hd, scale,
-                 int(bool(causal)), int(window), _DTYPES[q.dtype], int(mma))
+                 int(bool(causal)), int(window), _DTYPES[q.dtype],
+                 ROUTES[kernel])
     return out

@@ -15,7 +15,21 @@ from . import build
 
 DTYPES = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_float, ctypes.c_int)
+                                      ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_int)
+REGISTER_VECTORS = (1, 2, 4, 8)
+
+
+def vectors_per_lane(D: int, itemsize: int, vec: bool) -> int:
+    """How many 16-byte vectors of a row each lane holds in registers:
+    the least R in :data:`REGISTER_VECTORS` with 32 * R vectors covering
+    the row (up to 2,048 bf16 or 1,024 f32), or 0, the loop kernel, for
+    wider rows and for rows that cannot take 16-byte loads (``vec``
+    false)."""
+    per = 16 // itemsize
+    if not vec:
+        return 0
+    return next((r for r in REGISTER_VECTORS if 32 * r * per >= D), 0)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -40,9 +54,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                          f"{(M, D)}")
     scale = scale.contiguous()
     out = torch.empty_like(xm)
-    vec = int(D % (16 // x.element_size()) == 0
-              and build.aligned16(xm, scale, out))
+    vec = D % (16 // x.element_size()) == 0 and build.aligned16(xm, scale,
+                                                                 out)
     build.launch(build.entry(DTYPES[x.dtype], _ARGTYPES), x.device,
                  xm.data_ptr(), scale.data_ptr(), out.data_ptr(), M, D,
-                 float(eps), vec)
+                 float(eps), int(vec),
+                 vectors_per_lane(D, x.element_size(), vec))
     return out.reshape(x.shape)

@@ -621,7 +621,8 @@ def randn(shape, dtype, seed, device, scale=1.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1), (8, 64), (3, 5, 128), (4, 50),
-                                   (7, 960), (8192, 960), (2, 4100)])
+                                   (7, 960), (8192, 960), (2, 4100),
+                                   (8, 1600), (8, 2048), (8, 2056)])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     x = randn(shape, dtype, 1, cuda, 3.0)
     s = randn(shape[-1:], dtype, 2, cuda)
@@ -651,7 +652,9 @@ def test_swiglu_kernel_matches_plain(cuda, M, D, F, dtype):
 
 # (B, H, G, Sq, Sk, hd, causal, window): the sweep of tests/test_kernels.py,
 # then the serve shape's head size at ragged lengths, the CUDA-core
-# kernel's head sizes (48, 256) and the tensor-core kernel's largest (128)
+# kernel's head sizes (48, 256), the Hopper kernel's largest (128), and its
+# edges: Hymba's prefill at batch 1 (a 1,024 window over 2,048 keys), and
+# at hd 128 Sq < Sk under a window, Sq = 1 and a ragged non-causal S
 FA_CASES = [(1, 2, 2, 32, 32, 16, True, 0), (2, 4, 2, 64, 64, 32, True, 0),
             (1, 8, 1, 48, 48, 64, True, 0), (1, 2, 1, 64, 64, 16, True, 8),
             (1, 2, 1, 64, 64, 16, True, 16), (2, 4, 2, 1, 128, 32, True, 0),
@@ -660,7 +663,11 @@ FA_CASES = [(1, 2, 2, 32, 32, 16, True, 0), (2, 4, 2, 64, 64, 32, True, 0),
             (1, 15, 5, 200, 333, 64, True, 100),
             (1, 4, 2, 70, 70, 64, False, 30), (1, 4, 4, 1, 333, 64, True, 64),
             (1, 2, 1, 50, 50, 48, True, 0), (1, 2, 2, 33, 65, 256, True, 0),
-            (1, 4, 2, 129, 129, 128, True, 0)]
+            (1, 4, 2, 129, 129, 128, True, 0),
+            (1, 25, 5, 2048, 2048, 64, True, 1024),
+            (1, 4, 2, 100, 300, 128, True, 64),
+            (2, 4, 2, 1, 333, 128, True, 0),
+            (1, 4, 2, 77, 77, 128, False, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -680,12 +687,14 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bshd_reads_views_in_place(cuda, dtype):
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bshd_reads_views_in_place(cuda, dtype, hd):
     """The models' (B, S, H, hd) tensors go in as transposed views; the
     output comes back (B, S, H, hd) contiguous, no copy made."""
-    q = randn((2, 100, 15, 64), dtype, 9, cuda)
-    k = randn((2, 100, 5, 64), dtype, 10, cuda)
-    v = randn((2, 100, 5, 64), dtype, 11, cuda)
+    q = randn((2, 100, 15, hd), dtype, 9, cuda)
+    k = randn((2, 100, 5, hd), dtype, 10, cuda)
+    v = randn((2, 100, 5, hd), dtype, 11, cuda)
+    assert all(kflash.tma_describable(t.transpose(1, 2)) for t in (q, k, v))
     got = ops.flash_attention_bshd(q, k, v, causal=True, window=0)
     assert got.is_contiguous() and got.shape == q.shape
     assert_serve_close("flash_attention", got,

@@ -28,6 +28,7 @@ where only summation order, ``rsqrt`` and ``exp`` rounding differ, and
 2e-2 in bf16, where the f32 results straddle bf16 roundings (one bf16
 ulp is 2**-8 relative).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -250,6 +251,28 @@ def test_segmented_topk_negative_zero_ties_like_pallas():
     np.testing.assert_array_equal(port[1][0].numpy(), [6, 0, 1, 2, 3])
     assert_topk_equal(port, *jops.segmented_topk(jnp.asarray(x), 5,
                                                  interpret=True))
+
+
+@pytest.mark.parametrize("S,C,k", [(4, 37, 10), (3, 200, 200), (5, 64, 17)])
+def test_topk_plain_matches_jitted_oracles_on_nonfinite_rows(S, C, k):
+    """NaN, +inf and -inf in every row (and a row of -inf with two NaN):
+    both plain top-k versions equal ``repro.kernels.ref``'s jitted
+    ``lax.top_k`` oracles, values and indices in every slot (NaN first,
+    then +inf, ties to the lowest lane). The Pallas kernels are left
+    out: on a NaN row they emit lane C by design."""
+    rng = np.random.default_rng(S * C + k)
+    x = rng.standard_normal((S, C)).astype(np.float32)
+    for r in range(S):
+        for val, n in ((np.nan, 2 + r), (np.inf, 1 + r), (-np.inf, 3)):
+            x[r, rng.choice(C, n, replace=False)] = val
+    x[-1, :] = -np.inf
+    x[-1, [3, 9]] = np.nan
+    for port, oracle in ((ref.segmented_topk_ref, jref.segmented_topk_ref),
+                         (ref.topk_sparsify_ref, jref.topk_sparsify_ref)):
+        got = port(torch.as_tensor(x), k)
+        want = jax.jit(oracle, static_argnums=1)(jnp.asarray(x), k)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
 def test_segmented_topk_ops_cpu_counts_nothing():
@@ -504,3 +527,60 @@ def test_flash_attention_tensor_core_route():
     assert flash_attention.uses_mma(torch.bfloat16, 64)
     assert not flash_attention.uses_mma(torch.bfloat16, 48)
     assert not flash_attention.uses_mma(torch.float32, 64)
+
+
+def test_flash_attention_hopper_route():
+    """bf16 at hd 64 and 128 (SmolLM-360M's and Hymba-1.5B's 64 among
+    them) takes the wgmma kernel; hd 16 and 32 keep mma.sync; f32 and
+    other head sizes the CUDA-core kernel. ``uses_mma`` keeps its
+    answers."""
+    from repro_torch.kernels import flash_attention as kf
+    bf, f32 = torch.bfloat16, torch.float32
+    for hd in (64, 128):
+        assert kf.uses_wgmma(bf, hd) and kf.route(bf, hd) == "wgmma"
+    for hd in (16, 32, 48, 256):
+        assert not kf.uses_wgmma(bf, hd)
+    for hd in (16, 32, 64, 128):
+        assert not kf.uses_wgmma(f32, hd) and kf.route(f32, hd) == "simple"
+    assert kf.route(bf, 16) == kf.route(bf, 32) == "mma"
+    assert kf.route(bf, 48) == "simple"
+    assert [kf.uses_mma(bf, hd) for hd in (16, 32, 48, 64, 128, 256)] == [
+        True, True, False, True, True, False]
+    assert not kf.uses_mma(f32, 64)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_tma_describes_model_views(hd):
+    """The models' (B, S, H, hd) tensors, viewed as (B, H, S, hd), are
+    read in place by TMA; a base off 16 bytes, a row stride off 16 bytes
+    and a strided hd axis are not (the wrapper copies those)."""
+    from repro_torch.kernels import flash_attention as kf
+    B, S, H, G = 2, 100, 15, 5
+    for heads in (H, G):
+        x = torch.zeros(B, S, heads, hd, dtype=torch.bfloat16)
+        assert kf.tma_describable(x.transpose(1, 2))
+    q1 = torch.zeros(B, 1, H, hd, dtype=torch.bfloat16)
+    assert kf.tma_describable(q1.transpose(1, 2))              # Sq = 1
+    flat = torch.zeros(B * S * H * hd + 8, dtype=torch.bfloat16)
+    off = flat[1:1 + B * S * H * hd].view(B, S, H, hd)
+    assert not kf.tma_describable(off.transpose(1, 2))
+    padded = torch.zeros(B, S, H * hd + 4, dtype=torch.bfloat16)
+    rows = padded[..., :H * hd].view(B, S, H, hd)              # S stride off
+    assert not kf.tma_describable(rows.transpose(1, 2))
+    assert not kf.tma_describable(
+        torch.zeros(B, H, hd, S, dtype=torch.bfloat16).transpose(2, 3))
+    f32 = torch.zeros(B, S, H, hd, dtype=torch.float32)
+    assert kf.tma_describable(f32.transpose(1, 2))
+
+
+@pytest.mark.parametrize("D,itemsize,vec,want", [
+    (960, 2, True, 4), (1600, 2, True, 8), (2048, 2, True, 8),
+    (2056, 2, True, 0), (256, 2, True, 1), (264, 2, True, 2),
+    (960, 2, False, 0), (960, 4, True, 8), (1024, 4, True, 8),
+    (1028, 4, True, 0), (64, 4, True, 1)])
+def test_rmsnorm_vectors_per_lane(D, itemsize, vec, want):
+    """SmolLM's D of 960 and Hymba's 1,600 in bf16 take the register
+    kernel; rows past 2,048 bf16 or 1,024 f32, and rows without 16-byte
+    loads, take the loop (0)."""
+    from repro_torch.kernels import rmsnorm as krms
+    assert krms.vectors_per_lane(D, itemsize, vec) == want

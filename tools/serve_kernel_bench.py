@@ -1,0 +1,104 @@
+"""Time the serve path's ``flash_attention`` and ``rmsnorm`` kernels, for
+a before and after comparison on one card.
+
+    python3 tools/serve_kernel_bench.py [--root DIR] [--outputs DIR]
+
+Puts ``DIR/src`` (default: this checkout's) first on the path, so the
+kernels are that tree's own, and runs this checkout's ``chip_smoke.py``
+phase-6 timing of the serve kernels (``serve_timing``) on them: unpack
+another commit into a git-ignored directory (``git archive``) and run
+this script once for each tree, in turns (parent, change, change,
+parent), within one call on the card. Both trees are so timed on the same
+inputs beside the same library calls and bounds. It builds the tree's
+kernels, then prints the route the tree's wrapper takes, phase 6's serve
+lines (``flash_attention`` at SmolLM-360M's and Hymba-1.5B's prefill,
+``rmsnorm`` and ``swiglu`` at prefill and at a decode step), and the
+device time of one call of each attention and ``rmsnorm`` shape split by
+kernel name (``torch.profiler``, CUDA activity, 10 calls). With
+``--outputs DIR`` it saves this tree's ``rmsnorm`` outputs on seeded
+inputs there and says whether they are ``torch.equal`` to those every
+other tree saved in ``DIR``. The last line is one JSON object with all
+of it. Needs one CUDA card; exits non-zero without it.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+# (B, S, H, G, hd, window): the two serve paths' prefill attention
+ATTN = {"smollm-360m": (8, 1024, 15, 5, 64, 0),
+        "hymba-1.5b": (4, 2048, 25, 5, 64, 1024)}
+NORM = {"prefill": (8 * 1024, 960), "decode": (8, 960)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--outputs", type=Path, default=None)
+    args = ap.parse_args()
+    root = args.root.resolve()
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)        # puts HERE/src on the path
+    sys.path.insert(0, str(root / "src"))
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    import torch
+    cs.card()
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as kflash
+    check = Path(build.__file__).resolve()
+    if not check.is_relative_to(root):
+        raise SystemExit(f"imported {check}, not the tree under {root}")
+    build.library()
+    bf = torch.bfloat16
+    route = (kflash.route(bf, 64) if hasattr(kflash, "route")
+             else "mma" if kflash.uses_mma(bf, 64) else "simple")
+    print(f"[bench] tree {root}; bf16 hd 64 route {route}; ptxas: "
+          + "; ".join(e for e in cs.ptxas_entries(build.build_log())
+                      if "fa_" in e or "rmsnorm" in e), flush=True)
+    timed = {}
+    for line in cs.serve_timing(timed):
+        print(f"[bench] {line}", flush=True)
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0),
+           "route": route, **timed}
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda").to(bf)
+    splits, saved = {}, {}
+    for arch, (B, S, H, G, hd, window) in ATTN.items():
+        q, k, v = rn(B, S, H, hd), rn(B, S, G, hd), rn(B, S, G, hd)
+        splits[f"flash_attention {arch}"] = cs.launch_split(
+            lambda: ops.flash_attention_bshd(q, k, v, window=window))
+    for name, (M, D) in NORM.items():
+        x, scale = rn(M, D) * 3, rn(D)
+        splits[f"rmsnorm {name}"] = cs.launch_split(
+            lambda: ops.rmsnorm(x, scale))
+        saved[name] = ops.rmsnorm(x, scale).cpu()
+    for name, split in splits.items():
+        print(f"[bench] {name}, one call: {cs.split_text(split)}", flush=True)
+    out["split"] = splits
+    if args.outputs is not None:
+        args.outputs.mkdir(parents=True, exist_ok=True)
+        tag = str(root).strip("/").replace("/", "_")
+        equal = {}
+        for other in sorted(args.outputs.glob("*.pt")):
+            if other.stem != tag:
+                theirs = torch.load(other)
+                equal[other.stem] = all(torch.equal(saved[n], theirs[n])
+                                        for n in saved)
+        torch.save(saved, args.outputs / f"{tag}.pt")
+        out["rmsnorm_equal_to"] = equal
+        print(f"[bench] rmsnorm outputs torch.equal to the saved trees: "
+              f"{equal}", flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
