@@ -21,8 +21,11 @@ plain PyTorch version. Phases, one line each:
    CUDA events (median of 20 replays of a CUDA graph of 10 back-to-back
    calls) at the shapes its path gives it, beside the kernel's bound
    (``mlstm_scan`` and ``flash_attention`` at xLSTM-125M's or SmolLM-360M's
-   and at Hymba-1.5B's prefill shapes, ``rmsnorm`` and ``swiglu`` at
-   prefill and at a decode step), and
+   and at Hymba-1.5B's prefill shapes, ``rmsnorm`` at prefill and at a
+   decode step, ``swiglu`` at SmolLM-360M's and Hymba-1.5B's prefill and
+   decode step beside ``x @ w_gate`` and both products in one call, with
+   the route each shape takes, ``fedavg_agg`` over one host round's 8
+   leaves in one launch beside one launch a leaf and 8 ``torch.mv``), and
    the two top-k kernels' device time split by launch group
    (``torch.profiler``);
 7. ``segmented_topk`` and ``mkp_utility`` against their plain versions on
@@ -53,8 +56,12 @@ plain PyTorch version. Phases, one line each:
 14. the serve path's kernels against their plain versions on the card,
     f32 and bf16: ``rmsnorm``, ``swiglu`` and ``flash_attention`` at the
     serve shapes (SmolLM-360M's, and Hymba-1.5B's windowed attention and
-    D of 1,600) and the reference's test sweeps (MHA, GQA, MQA, windows
-    8 and 16, Sq=1 against Sk, non-causal, ragged S; ragged M, D, F);
+    D of 1,600, its MLP at prefill and decode) and the reference's test
+    sweeps (MHA, GQA, MQA, windows 8 and 16, Sq=1 against Sk, non-causal,
+    ragged S; ragged M, D, F); ``swiglu`` takes its expected route at
+    each serve shape and at D % 8 != 0, every other kernel that takes
+    the operands is held too below prefill size, and every call repeats
+    bit for bit;
 15. the serve path at full width: SmolLM-360M, bf16, random weights from
     a seed, 8 prompts of 1,024 tokens and 32 new tokens through
     ``models.transformer`` ``prefill`` / ``grow_cache`` / ``decode_step``
@@ -65,14 +72,15 @@ plain PyTorch version. Phases, one line each:
 16. the entry point ``repro_torch.launch.serve.serve("smollm-360m")`` at
     its default (reduced) size;
 17. ``fedavg_agg`` against its plain version on the card, f32 and bf16,
-    K from 1 to 100 (past row 1's 64), P from 1 to 1,070,794;
+    K from 1 to 100 (past row 1's 64), P from 1 to 1,070,794; one launch
+    over many leaves bit-equal to one launch a leaf;
 18. the host-loop plane: ``run_fl_experiment`` at its default
     (``data_plane="host"``) at CIFAR_CNN width, then 8 rounds each of
     ``make_fl_round(use_agg_kernel=True)`` (through
     ``FLClassificationSim``'s batch assembly) and of the two-pass
     ``make_fl_rounds_scan(use_agg_kernel=True)`` at K = 13: launches
-    exactly 8 a round, held against the same rounds through
-    ``kernels=ops.PLAIN``;
+    exactly one a round, bit-equal to the same rounds with one launch a
+    leaf and held against them through ``kernels=ops.PLAIN``;
 19. the fault plane on both planes: the reference's ``bench_faults``
     plan with over-scheduling, a quorum and a deadline, 16 rounds each;
     every committed round met its quorum, and a client that missed the
@@ -106,12 +114,14 @@ last two lines are the kernel records and ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -164,6 +174,20 @@ SERVE_D, SERVE_F, SERVE_H, SERVE_G, SERVE_HD = 960, 2560, 15, 5, 64
 # tokens; Hymba's 1,024-token window bites in prefill and in the ring
 # cache. The scan at their shapes: (B, H, S, dk, dv, normalize).
 SSM_B, SSM_PROMPT, SCAN_CHUNK = 4, 2048, 256
+# Hymba-1.5B's MLP in prefill: (M, D, F); and swiglu's four serve shapes
+HYMBA_MLP = (SSM_B * SSM_PROMPT, 1600, 5504)
+SWIGLU_SHAPES = {
+    "SmolLM-360M prefill": (SERVE_B * SERVE_PROMPT, SERVE_D, SERVE_F),
+    "SmolLM-360M decode": (SERVE_B, SERVE_D, SERVE_F),
+    "Hymba-1.5B prefill": HYMBA_MLP,
+    "Hymba-1.5B decode": (SSM_B,) + HYMBA_MLP[1:]}
+# Phase 14's swiglu cases: the serve shapes, the reference's sweep, and
+# ragged ones: M off 128, D off 64, F off 128, two rows passes at decode,
+# the split-K route's largest D, and D % 8 != 0 (the mma.sync kernel)
+SWIGLU_CASES = [*SWIGLU_SHAPES.values(), (16, 32, 48), (7, 64, 24),
+                (64, 128, 256), (5, 50, 37), (130, 200, 70), (1000, 200, 72),
+                (300, 1608, 136), (12, 1000, 520), (3, 2048, 64),
+                (200, 962, 2560), (8, 964, 2560)]
 SCAN_SHAPES = {"xlstm-125m": (4, 4, 2048, 384, 384, True),
                "hymba-1.5b": (4, 25, 2048, 16, 64, False)}
 # Kernel against plain version, by dtype: (rtol, atol) with the reasons
@@ -508,6 +532,7 @@ def split_text(split: dict) -> str:
 
 def timing(fleet) -> dict:
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import swiglu as kswiglu
     g = torch.Generator(device="cuda").manual_seed(2)
     u = torch.randn(MAIN_K, MAIN_P, generator=g, device="cuda")
     w = torch.softmax(torch.randn(MAIN_K, generator=g, device="cuda"), 0)
@@ -559,6 +584,9 @@ def timing(fleet) -> dict:
                  f"({nbytes} B)")
     lines += compression_timing(u, w, out)
     lines += serve_timing(out)
+    lines.append("swiglu routes: " + ", ".join(
+        f"{name} {kswiglu.route(torch.bfloat16, *shape, True)}"
+        for name, shape in SWIGLU_SHAPES.items()))
     lines += scan_timing(out)
     phase(6, "median of 20 replays of a graph of 10 calls; bounds at "
              "3.35 TB/s and 67 TFLOP/s f32 (989 TFLOP/s bf16 for the "
@@ -571,9 +599,12 @@ def timing(fleet) -> dict:
 
 def agg_timing(u, w, mv_ms, out, g) -> list[str]:
     """``fedavg_agg`` at the fused kernel's shape and over the 8 CIFAR_CNN
-    leaves at K = 13 (what one host-loop round launches), beside the
-    byte bound and ``torch.mv(U.T, w)``, the one PyTorch call that
-    computes the same sum. Fills ``out`` and returns the phase-6 lines."""
+    leaves at K = 13 (what one host-loop round launches: one launch over
+    all leaves), beside the same leaves one launch each (the single-matrix
+    entry), the byte bound and ``torch.mv(U.T, w)``, the one PyTorch call
+    that computes the same sum. Fills ``out`` and returns the phase-6
+    lines."""
+    from repro_torch.kernels import fedavg_agg as kagg
     from repro_torch.kernels import ops, ref
     from repro_torch.models import cnn
     K, P = MAIN_K, MAIN_P
@@ -584,8 +615,10 @@ def agg_timing(u, w, mv_ms, out, g) -> list[str]:
               for n, shape in cnn.param_shapes(cnn.CIFAR_CNN).items()}
     sizes = [v[0].numel() for v in leaves.values()]
     flat = [v.reshape(K, -1) for v in leaves.values()]
+    per_leaf = functools.partial(kagg.fedavg_agg_tree, agg=ops.fedavg_agg)
     t["per_round_8_leaves"] = {
         "ms": time_ms(lambda: ops.fedavg_agg_tree(leaves, w)),
+        "per_leaf_launches_ms": time_ms(lambda: per_leaf(leaves, w)),
         "plain_ms": time_ms(lambda: ops.PLAIN.fedavg_agg_tree(leaves, w)),
         "library_ms": time_ms(lambda: [torch.mv(f.T, w) for f in flat]),
         **bound(sum(4 * (K * n + K + n) for n in sizes),
@@ -596,9 +629,10 @@ def agg_timing(u, w, mv_ms, out, g) -> list[str]:
             f"{t['plain_ms']:.4f} ms, torch.mv(U.T, w) {mv_ms:.4f} ms; bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})",
             f"fedavg_agg over the 8 CIFAR_CNN leaves at K={K} (P {sizes}): "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, 8 "
-            f"torch.mv {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})"]
+            f"kernel, one launch {r['ms']:.4f} ms (one launch a leaf "
+            f"{r['per_leaf_launches_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+            f"ms, 8 torch.mv {r['library_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"]
 
 
 def compression_timing(u, w, out) -> list[str]:
@@ -652,14 +686,17 @@ def compression_timing(u, w, out) -> list[str]:
 
 
 def serve_timing(out) -> list[str]:
-    """The serve path's kernels at the shapes SmolLM-360M's full-width
-    serve gives them (bf16): prefill (8 x 1,024 tokens) and, for rmsnorm
-    and swiglu, a decode step (8 tokens); flash_attention also at
-    Hymba-1.5B's windowed prefill (4 x 2,048 tokens). Fills ``out`` and
-    returns the phase-6 lines. Library yardsticks the port never calls:
-    ``F.rms_norm``, ``x @ w_gate`` alone (no one call computes SwiGLU)
-    and ``F.scaled_dot_product_attention`` (causal, GQA; at Hymba's shape
-    with the window as a boolean mask)."""
+    """The serve path's kernels at the shapes the full-width serves give
+    them (bf16): SmolLM-360M's prefill (8 x 1,024 tokens) and, for rmsnorm
+    and swiglu, a decode step (8 tokens); flash_attention and swiglu also
+    at Hymba-1.5B's prefill (4 x 2,048 tokens) and swiglu at its decode
+    step (4 tokens). Fills ``out`` and returns the phase-6 lines. Library
+    yardsticks the port never calls: ``F.rms_norm``,
+    ``F.scaled_dot_product_attention`` (causal, GQA; at Hymba's shape with
+    the window as a boolean mask); no one call computes SwiGLU, so beside
+    it stand ``x @ w_gate`` alone and both products in one call, ``x @
+    w_gu`` with ``w_gu = cat([w_gate, w_up], 1)`` built outside the
+    timing."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -669,24 +706,35 @@ def serve_timing(out) -> list[str]:
     M, D, Fd = SERVE_B * SERVE_PROMPT, SERVE_D, SERVE_F
     B, S, H, G, hd = SERVE_B, SERVE_PROMPT, SERVE_H, SERVE_G, SERVE_HD
     scale = rn(D)
-    wg, wu = rn(D, Fd, s=D ** -0.5), rn(D, Fd, s=D ** -0.5)
     lines = []
 
-    def timed(m, x):
-        norm = {"ms": time_ms(lambda: ops.rmsnorm(x, scale)),
+    def norm_timed(m, x):
+        return {"ms": time_ms(lambda: ops.rmsnorm(x, scale)),
                 "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale)),
                 "library_ms": time_ms(lambda: F.rms_norm(x, (D,), scale,
                                                          1e-6)),
                 **bound(2 * (2 * m * D + D), 4 * m * D)}
-        mlp = {"ms": time_ms(lambda: ops.swiglu(x, wg, wu)),
-               "plain_ms": time_ms(lambda: ref.swiglu_ref(x, wg, wu)),
-               "library_ms": time_ms(lambda: x @ wg),
-               **bound(2 * (m * D + 2 * D * Fd + m * Fd), 4 * m * D * Fd,
-                       PEAK_BF16_FLOPS)}
-        return norm, mlp
 
-    norm, mlp = timed(M, rn(M, D))
-    norm["at_decode"], mlp["at_decode"] = timed(SERVE_B, rn(SERVE_B, D))
+    def mlp_timed(m, d, f, wg, wu):
+        x, w_gu = rn(m, d), torch.cat([wg, wu], 1)
+        return {"ms": time_ms(lambda: ops.swiglu(x, wg, wu)),
+                "plain_ms": time_ms(lambda: ref.swiglu_ref(x, wg, wu)),
+                "library_ms": None,
+                "gate_product_ms": time_ms(lambda: x @ wg),
+                "both_products_ms": time_ms(lambda: x @ w_gu),
+                **bound(2 * (m * d + 2 * d * f + m * f), 4 * m * d * f,
+                        PEAK_BF16_FLOPS)}
+
+    norm = norm_timed(M, rn(M, D))
+    norm["at_decode"] = norm_timed(SERVE_B, rn(SERVE_B, D))
+    wg, wu = rn(D, Fd, s=D ** -0.5), rn(D, Fd, s=D ** -0.5)
+    mlp = mlp_timed(M, D, Fd, wg, wu)
+    mlp["at_decode"] = mlp_timed(SERVE_B, D, Fd, wg, wu)
+    hm, hd_, hf = HYMBA_MLP
+    hwg, hwu = rn(hd_, hf, s=hd_ ** -0.5), rn(hd_, hf, s=hd_ ** -0.5)
+    mlp["at_hymba"] = mlp_timed(hm, hd_, hf, hwg, hwu)
+    mlp["at_hymba_decode"] = mlp_timed(SSM_B, hd_, hf, hwg, hwu)
+    del hwg, hwu
 
     def attn_timed(B, S, H, G, window, lib):
         """Causal attention over (B, S, H, hd) views; the bound counts the
@@ -718,9 +766,6 @@ def serve_timing(out) -> list[str]:
             ("rmsnorm", norm, f"({M}, {D})", "F.rms_norm"),
             ("rmsnorm decode", norm["at_decode"], f"({SERVE_B}, {D})",
              "F.rms_norm"),
-            ("swiglu", mlp, f"M={M} D={D} F={Fd}", "x @ w_gate alone"),
-            ("swiglu decode", mlp["at_decode"], f"M={SERVE_B} D={D} F={Fd}",
-             "x @ w_gate alone"),
             ("flash_attention", attn, f"q ({B}, {H}, {S}, {hd}) causal GQA "
              f"G={G}, (B, S, H, hd) views", "SDPA causal GQA"),
             ("flash_attention at Hymba-1.5B's prefill", attn["at_hymba"],
@@ -729,6 +774,17 @@ def serve_timing(out) -> list[str]:
         lines.append(f"{name} {shape} bf16: kernel {t['ms']:.4f} ms, plain "
                      f"{t['plain_ms']:.4f} ms, {lib} {t['library_ms']:.4f} "
                      f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    for name, t, (m, d, f) in (
+            ("swiglu", mlp, (M, D, Fd)),
+            ("swiglu decode", mlp["at_decode"], (SERVE_B, D, Fd)),
+            ("swiglu at Hymba-1.5B's prefill", mlp["at_hymba"], HYMBA_MLP),
+            ("swiglu at Hymba-1.5B's decode", mlp["at_hymba_decode"],
+             (SSM_B, hd_, hf))):
+        lines.append(f"{name} M={m} D={d} F={f} bf16: kernel {t['ms']:.4f} "
+                     f"ms, plain {t['plain_ms']:.4f} ms, x @ w_gate alone "
+                     f"{t['gate_product_ms']:.4f} ms, both products in one "
+                     f"call (x @ w_gu) {t['both_products_ms']:.4f} ms; bound "
+                     f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return lines
 
 
@@ -1401,10 +1457,12 @@ def serve_kernels_vs_plain() -> dict:
     versions on the card, f32 and bf16. Returns max |err| at the serve
     shapes in bf16 (prefill's for rmsnorm and swiglu)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import swiglu as kswiglu
     g = torch.Generator(device="cuda").manual_seed(14)
     rn = lambda shape, dtype, s=1.0: (torch.randn(
         shape, generator=g, device="cuda") * s).to(dtype)
     err, n = {}, dict.fromkeys(SERVE_TOL, 0)
+    routes, held_routes = {}, {}
 
     def held(name, case, got, exp):
         rtol, atol = SERVE_TOL[name][exp.dtype]
@@ -1439,13 +1497,24 @@ def serve_kernels_vs_plain() -> dict:
             x, s = rn(shape, dtype, 3.0), rn(shape[-1:], dtype)
             held("rmsnorm", (shape, dtype), ops.rmsnorm(x, s),
                  ref.rmsnorm_ref(x, s))
-        for m, d, f in ((M, D, Fd), (SERVE_B, D, Fd), (16, 32, 48),
-                        (7, 64, 24), (64, 128, 256), (5, 50, 37),
-                        (130, 200, 70)):
+        for m, d, f in SWIGLU_CASES:
             x = rn((m, d), dtype)
             wg, wu = rn((d, f), dtype, d ** -0.5), rn((d, f), dtype, d ** -0.5)
-            held("swiglu", ((m, d, f), dtype), ops.swiglu(x, wg, wu),
-                 ref.swiglu_ref(x, wg, wu))
+            exp = ref.swiglu_ref(x, wg, wu)
+            got = ops.swiglu(x, wg, wu)
+            held("swiglu", ((m, d, f), dtype), got, exp)
+            check(torch.equal(got, ops.swiglu(x, wg, wu)),
+                  f"swiglu {(m, d, f)} {dtype}: a repeat is bit-equal")
+            kinds = kswiglu._routes(dtype, m, d, f, True)
+            if dtype == torch.bfloat16:
+                routes[m, d, f] = kinds[0]
+            # every other kernel that takes the operands, below prefill size
+            for kind in kinds[1:] if m <= 1024 else ():
+                other = kswiglu.swiglu(x, wg, wu, kernel=kind)
+                held("swiglu", ((m, d, f), dtype, kind), other, exp)
+                check(torch.equal(other, kswiglu.swiglu(x, wg, wu, kernel=kind)),
+                      f"swiglu {kind} {(m, d, f)}: a repeat is bit-equal")
+                held_routes[kind] = held_routes.get(kind, 0) + 1
         for case in attn_cases:
             B, H, G, Sq, Sk, hd, causal, window = case
             q, k, v = (rn((B, S, h, hd), dtype) for S, h in
@@ -1457,19 +1526,34 @@ def serve_kernels_vs_plain() -> dict:
                                                 window=window))
     torch.cuda.synchronize()
     bf = torch.bfloat16
+    want = {**{shape: "splitk" if name.endswith("decode") else "wgmma"
+               for name, shape in SWIGLU_SHAPES.items()},
+            (200, 962, 2560): "mma", (8, 964, 2560): "mma"}
+    check(all(routes[shape] == kind for shape, kind in want.items()),
+          f"swiglu routes {routes} take {want}")
     main = {"rmsnorm": err["rmsnorm", ((M, D), bf)],
             "swiglu": err["swiglu", ((M, D, Fd), bf)],
             "flash_attention": err["flash_attention", (serve_attn, bf)]}
     at_hymba = {"rmsnorm prefill": err["rmsnorm", (hymba_norm[0], bf)],
                 "rmsnorm decode": err["rmsnorm", (hymba_norm[1], bf)],
-                "flash_attention": err["flash_attention", (hymba_attn, bf)]}
+                "flash_attention": err["flash_attention", (hymba_attn, bf)],
+                "swiglu prefill": err["swiglu", (HYMBA_MLP, bf)],
+                "swiglu decode": err["swiglu", (SWIGLU_SHAPES[
+                    "Hymba-1.5B decode"], bf)]}
+    decode_err = err["swiglu", ((SERVE_B, D, Fd), bf)]
     worst = {name: max(e for (k, _), e in err.items() if k == name)
              for name in SERVE_TOL}
     phase(14, f"serve kernels vs plain on the card, f32 and bf16: rmsnorm "
               f"{n['rmsnorm']} cases (rows x D in {M}x{D}, {SERVE_B}x{D}, "
               f"{SSM_B * SSM_PROMPT}x1600, {SSM_B}x1600, 4x50, 15x128, 1x1), "
               f"swiglu {n['swiglu']} (M, D, F in "
-              f"({M}, {D}, {Fd}), ({SERVE_B}, {D}, {Fd}) and ragged), "
+              f"{', '.join(map(str, SWIGLU_SHAPES.values()))} and ragged: "
+              f"M off 128, D off 64, F off 128, D % 8 != 0; routes "
+              + ", ".join(f"{s_} {k}" for s_, k in routes.items())
+              + f"; below prefill size also every other kernel that takes "
+              f"the operands: " + ", ".join(f"{k} {c}" for k, c in
+                                          held_routes.items())
+              + "; every call's repeat bit-equal), "
               f"flash_attention {n['flash_attention']} ((B, H, G, Sq, Sk, hd) "
               f"= {serve_attn[:6]} causal, Hymba-1.5B's {hymba_attn[:6]} "
               f"with window {hymba_attn[7]}, and the reference's sweep: MHA, GQA, "
@@ -1477,7 +1561,7 @@ def serve_kernels_vs_plain() -> dict:
               f"256), all within the stated tolerances; max |err| at the "
               f"serve shapes in bf16: "
               + ", ".join(f"{k} {v:.3e}" for k, v in main.items())
-              + "; at Hymba-1.5B's: "
+              + f" (swiglu at decode {decode_err:.3e}); at Hymba-1.5B's: "
               + ", ".join(f"{k} {v:.3e}" for k, v in at_hymba.items())
               + "; largest over all cases: "
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
@@ -1754,10 +1838,36 @@ def agg_kernel_vs_plain() -> float:
                     check(torch.equal(got, ops.fedavg_agg(u, w)),
                           "fedavg_agg repeats bit for bit")
                 n += 1
+    # one launch over many leaves, bit-equal to one launch a leaf: the
+    # CIFAR_CNN leaves at K = 13, and 40 leaves (two tables) at K = 2,100
+    # (weights staged a tile at a time)
+    from repro_torch.kernels import fedavg_agg as kagg
+    from repro_torch.models import cnn
+    trees = []
+    for dtype in (torch.float32, torch.bfloat16):
+        trees.append(({name: torch.randn((MAIN_K,) + shape, generator=g,
+                                         device="cuda").to(dtype)
+                       for name, shape in cnn.param_shapes(cnn.CIFAR_CNN).items()},
+                      torch.rand(MAIN_K, generator=g, device="cuda"), 1))
+    trees.append(({f"l{i}": torch.randn(2100, 1 + 37 * i, generator=g,
+                                        device="cuda") for i in range(40)},
+                  torch.rand(2100, generator=g, device="cuda"), 2))
+    for tree, w, tables in trees:
+        before = ops.LAUNCHES["fedavg_agg"]
+        got = ops.fedavg_agg_tree(tree, w)
+        check(ops.LAUNCHES["fedavg_agg"] - before == tables,
+              f"fedavg_agg_tree over {len(tree)} leaves: {tables} launches")
+        per_leaf = kagg.fedavg_agg_tree(tree, w, agg=kagg.fedavg_agg)
+        torch.cuda.synchronize()
+        check(all(torch.equal(got[k], per_leaf[k]) for k in tree),
+              f"fedavg_agg_tree over {len(tree)} leaves bit-equal to one "
+              f"launch a leaf")
     phase(17, f"fedavg_agg vs plain: {n} cases (K in {Ks}; P in {Ps}; f32 "
               f"and bf16) within f32 rtol 1e-5 / bf16 rtol 2^-7 (one bf16 "
               f"ulp); max |err| at K={MAIN_K} P={MAIN_P} f32: "
-              f"{main_err:.3e}; repeat bit-identical")
+              f"{main_err:.3e}; repeat bit-identical; one launch over the 8 "
+              f"CIFAR_CNN leaves (f32 and bf16) and two over 40 leaves at "
+              f"K=2100 bit-equal to one launch a leaf")
     return main_err
 
 
@@ -1771,6 +1881,7 @@ def host_plane(base_ms: float) -> int:
     from repro_torch.fl import device_data
     from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
     from repro_torch.fl.simulation import FLClassificationSim, SimConfig
+    from repro_torch.kernels import fedavg_agg as kagg
     from repro_torch.kernels import ops
     from repro_torch.models import cnn
     rounds = 24
@@ -1830,6 +1941,11 @@ def host_plane(base_ms: float) -> int:
         torch.cuda.synchronize()
         return p, info["q_values"].cpu().numpy()
 
+    # the aggregate one launch a leaf (the single-matrix entry), as before
+    # the leaves kernel: the one-launch rounds must equal it bit for bit
+    per_leaf = types.SimpleNamespace(**{n: getattr(ops, n) for n in ops.__all__})
+    per_leaf.fedavg_agg_tree = functools.partial(kagg.fedavg_agg_tree,
+                                                 agg=ops.fedavg_agg)
     launches, gaps = {}, {}
     for name, drive in (("make_fl_round", host_rounds),
                         ("make_fl_rounds_scan", scan_rounds)):
@@ -1840,9 +1956,13 @@ def host_plane(base_ms: float) -> int:
         pk, qk = drive(ops)
         dt = time.perf_counter() - t
         launches[name] = {n: c for n, c in ops.LAUNCHES.items() if c}
-        check(launches[name] == {"fedavg_agg": 8 * S},
+        check(launches[name] == {"fedavg_agg": S},
               f"{name}(use_agg_kernel=True): launches {launches[name]} == "
-              f"8 a round over {S} rounds")
+              f"one a round over {S} rounds")
+        pl, ql = drive(per_leaf)
+        check(all(torch.equal(pk[n], pl[n]) for n in pk)
+              and np.array_equal(qk, ql),
+              f"{name}: one launch a round bit-equal to one a leaf")
         pp, qp = drive(ops.PLAIN)
         check(all(bool(torch.isfinite(v).all()) for v in pk.values()),
               f"{name}: finite params")
@@ -1863,7 +1983,8 @@ def host_plane(base_ms: float) -> int:
               f"reference's host round aggregates plainly) | on the same "
               f"data, {S} rounds at K={MAIN_K} with use_agg_kernel=True: "
               + "; ".join(f"{k}: fedavg_agg launches "
-                          f"{launches[k].get('fedavg_agg', 0)} (8 a round), "
+                          f"{launches[k].get('fedavg_agg', 0)} (one a round; "
+                          f"params and q bit-equal to one launch a leaf), "
                           f"{g_[2]:.1f} ms/round, kernel vs plain max |dparams| "
                           f"{g_[0]:.3e} (tol 1e-4), max |dq| {g_[1]:.3e} (tol "
                           f"1e-3)" for k, g_ in gaps.items())

@@ -83,8 +83,8 @@ def tree_weighted_sum(trees_stacked: dict, weights: torch.Tensor,
 
     The plain branch casts the weights to the leaf's dtype and sums in
     f32, as the reference's ``dot_general`` with an f32 result does; the
-    kernel branch is ``kernels.fedavg_agg_tree`` (``fedavg_agg`` once per
-    leaf), whose weights are f32. The two agree for f32 leaves; for bf16
+    kernel branch is ``kernels.fedavg_agg_tree`` (``fedavg_agg`` over all
+    the leaves in one launch), whose weights are f32. The two agree for f32 leaves; for bf16
     leaves the rounded weights differ (ROADMAP.md, known differences).
     """
     if use_kernel:
@@ -145,7 +145,7 @@ def aggregate_and_quality(deltas, w, spec: CompressionSpec, kernels=kops,
     - ``fused_quality``: one fused pass over the flattened deltas
       (``kernels.fedavg_agg_quality``);
     - else the two-pass path: ``tree_weighted_sum`` (the ``fedavg_agg``
-      kernel per leaf with ``use_agg_kernel``), then the cosines.
+      kernel over all leaves with ``use_agg_kernel``), then the cosines.
     """
     if not spec.active and not fused_quality:
         agg = tree_weighted_sum(deltas, w, use_agg_kernel, kernels)
@@ -179,7 +179,7 @@ def make_fl_round(loss_fn: Callable, local_lr: float = 0.05,
     and ``mean_loss`` ().
 
     ``use_agg_kernel`` aggregates through the ``fedavg_agg`` kernel
-    (once per leaf; the plain weighted sum otherwise);
+    (one launch over all leaves; the plain weighted sum otherwise);
     ``fused_quality`` takes the fused aggregation + quality pass.
     ``kernels`` is where the ops come from (``kernels.ops.PLAIN`` runs
     the plain versions on the card).
@@ -234,7 +234,7 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
 
     - ``fused_quality`` (default): the fused aggregation + quality pass;
       ``False`` takes the two-pass path, through the ``fedavg_agg``
-      kernel per leaf when ``use_agg_kernel`` (see
+      kernel over all leaves when ``use_agg_kernel`` (see
       :func:`aggregate_and_quality`).
     - ``compression``: a spec string or
       :class:`repro_torch.fl.compression.CompressionSpec`

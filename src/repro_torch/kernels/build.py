@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` (CUDA C++ for ``sm_90a``, each with a plain C
 interface) is compiled at first use, one ``nvcc`` process per source,
 all started together, and the objects are linked by one more ``nvcc``
 call into one shared library under the checkout's git-ignored
-``build/kernels/``, named by a hash of all the sources, and loaded with
+``build/kernels/``, named by a hash of all the sources and of the
+headers they include (``csrc/*.cuh``), and loaded with
 ``ctypes``. Nothing is built or loaded at import, so the CPU tests
 import the bindings freely. Each binding module (``fedavg_agg``,
 ``segmented_topk``, ``mkp_utility``, ``compression``) sets the argument
@@ -29,6 +30,11 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """Every header the sources include (``csrc/*.cuh``), in a fixed order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -41,9 +47,10 @@ def _nvcc() -> str:
 
 
 def _lib_path() -> Path:
-    """The library built from the current sources (named by their hash)."""
+    """The library built from the current sources and headers (named by
+    their hash, so an edit to either builds anew)."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"

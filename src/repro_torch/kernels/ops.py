@@ -14,9 +14,10 @@ through the kernel; set an entry to 0 to start a count.
   SXM's 3.35 TB/s. The device plane launches it once per round.
 - ``fedavg_agg`` replaces ``src/repro/kernels/fedavg_agg.py::fedavg_agg``
   (line 40): the aggregate alone, with the same bound.
-  ``fedavg_agg_tree`` maps it over the leaves of stacked parameters, so
-  the host-loop round (``fl.round.make_fl_round(use_agg_kernel=True)``)
-  launches it once per leaf, 8 times a round for the CNN.
+  ``fedavg_agg_tree`` takes it over every leaf of stacked parameters in
+  one launch (a table of up to 32 leaves of one dtype a launch), so the
+  host-loop round (``fl.round.make_fl_round(use_agg_kernel=True)``)
+  launches it once a round for the CNN.
 - ``segmented_topk`` replaces ``src/repro/kernels/segmented_topk.py``
   (line 62): the per-shard frontier of the fleet-scale stage 1, launched
   once per frontier (per task, and again per escalation).
@@ -76,8 +77,15 @@ def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 def fedavg_agg_tree(stacked: dict[str, torch.Tensor],
                     weights: torch.Tensor) -> dict[str, torch.Tensor]:
     """:func:`fedavg_agg` of every leaf of stacked parameters (leaves
-    (K, ...)), one call per leaf."""
-    return _fedavg_agg.fedavg_agg_tree(stacked, weights, agg=fedavg_agg)
+    (K, ...)): on the card one launch over all the leaves (one a table of
+    up to 32 leaves of one dtype), each leaf bit-equal to its own
+    :func:`fedavg_agg`; on the CPU the plain version per leaf."""
+    if weights.device.type == "cpu":
+        return _fedavg_agg.fedavg_agg_tree(stacked, weights,
+                                           agg=ref.fedavg_agg_ref)
+    out, launches = _fedavg_agg.fedavg_agg_leaves(stacked, weights)
+    LAUNCHES["fedavg_agg"] += launches
+    return out
 
 
 def fedavg_agg_quality(updates: torch.Tensor, weights: torch.Tensor):

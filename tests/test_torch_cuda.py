@@ -17,7 +17,9 @@ scales; one correctly rounded f32 operation a step) and
 ``fedavg_agg_quality`` in f32. ``fedavg_agg`` sums each column's K
 terms in one fixed order with fmaf, the plain version through a matmul:
 f32 within rtol 1e-5 / atol 1e-5 (K up to 3,000), bf16 within one bf16
-ulp. A compressed round chunk through the
+ulp; ``fedavg_agg_tree`` runs the same per-column loop over every leaf
+in one launch, so each leaf is ``torch.equal`` to its own launch. A
+compressed round chunk through the
 kernels against the same chunk through ``kernels.ops.PLAIN``: masks and
 bytes exact; the first round's payloads are equal and only the f32 sums
 of the aggregate differ, so a later round may move an int8 value by a
@@ -33,7 +35,9 @@ another order, and the kernel's SiLU is g / (1 + exp(-g)) where the plain
 version's is g * sigmoid(g): rtol 1e-5 in f32 and one bf16 ulp (2**-7) in
 bf16, with atol 1e-4 in both, since where g is near 0 its f32 sum of D
 products loses its relative accuracy and |u| (up to about 30) scales
-that error (seen: 3e-5 at D = 960 in bf16). ``flash_attention``: f32
+that error (seen: 3e-5 at D = 960 in bf16); every route that takes the
+operands (``wgmma``, ``splitk``, ``mma.sync``) is held the same way.
+``flash_attention``: f32
 rtol = atol = 2e-5, bf16 2e-2 (the reference's own kernel tolerances,
 tests/test_kernels.py; the bf16 kernel also rounds the probabilities to
 bf16 for the P·V product). ``mlstm_scan``: kernel and plain version
@@ -61,6 +65,7 @@ from repro_torch.fl import device_data
 from repro_torch.fl.compression import CompressionSpec, bytes_per_client
 from repro_torch.fl.partition import partition_labels
 from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
+from repro_torch.kernels import build
 from repro_torch.kernels import compression as kcomp
 from repro_torch.kernels import fedavg_agg, mkp_utility, ops, ref
 from repro_torch.kernels import flash_attention as kflash
@@ -163,6 +168,70 @@ def test_fedavg_agg_kernel_refuses_bad_inputs(cuda):
                               torch.ones(0, device=cuda))
 
 
+def cifar_leaves(cuda, dtype, K=13, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return ({name: torch.randn((K,) + shape, generator=g,
+                               device=cuda).to(dtype)
+             for name, shape in cnn.param_shapes(cnn.CIFAR_CNN).items()},
+            torch.rand(K, generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fedavg_agg_tree_is_one_launch_bit_equal_to_per_leaf(cuda, dtype):
+    """The 8 CIFAR_CNN leaves in one launch, each leaf bit-equal to its
+    own ``fedavg_agg`` launch, in its per-client shape."""
+    tree, w = cifar_leaves(cuda, dtype)
+    before = ops.LAUNCHES["fedavg_agg"]
+    got = ops.fedavg_agg_tree(tree, w)
+    assert ops.LAUNCHES["fedavg_agg"] == before + 1
+    for name, leaf in tree.items():
+        assert got[name].shape == leaf.shape[1:] and got[name].dtype == dtype
+        assert torch.equal(got[name].reshape(-1),
+                           fedavg_agg.fedavg_agg(leaf.reshape(13, -1), w))
+    assert all(torch.equal(got[n], v)
+               for n, v in ops.fedavg_agg_tree(tree, w).items())
+
+
+@pytest.mark.parametrize("K", [3, 2100])
+def test_fedavg_agg_tree_past_the_table_and_across_dtypes(cuda, K):
+    """More leaves than a table holds take one launch a table; two dtypes
+    a table each; K past the 2,048 weights staged at once; odd widths,
+    a one-element leaf and a base off 16 bytes (scalar loads)."""
+    g = torch.Generator(device=cuda).manual_seed(K)
+    n = fedavg_agg.MAX_LEAVES + 7
+    tree = {f"f{i}": torch.randn(K, 1 + 37 * i, generator=g, device=cuda)
+            for i in range(n)}
+    tree.update({f"b{i}": torch.randn(K, 3, 8 * i + 5, generator=g,
+                                      device=cuda).to(torch.bfloat16)
+                 for i in range(3)})
+    buf = torch.randn(K * 64 + 1, generator=g, device=cuda)
+    tree["shifted"] = buf[1:].view(K, 64)
+    w = torch.rand(K, generator=g, device=cuda)
+    w = w / w.sum()
+    before = ops.LAUNCHES["fedavg_agg"]
+    got = ops.fedavg_agg_tree(tree, w)
+    assert ops.LAUNCHES["fedavg_agg"] == before + 3
+    for name, leaf in tree.items():
+        want = fedavg_agg.fedavg_agg(leaf.reshape(K, -1).contiguous(), w)
+        assert torch.equal(got[name].reshape(-1), want)
+        rtol = 2.0 ** -7 if leaf.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(
+            got[name].reshape(-1).float(),
+            ref.fedavg_agg_ref(leaf.reshape(K, -1), w).float(), rtol=rtol,
+            atol=1e-5)
+
+
+def test_fedavg_agg_tree_refuses_bad_inputs(cuda):
+    w = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fedavg_agg.fedavg_agg_leaves({"x": torch.ones(4, 8, device=cuda,
+                                                      dtype=torch.half)}, w)
+    with pytest.raises(ValueError, match="K=4"):
+        fedavg_agg.fedavg_agg_leaves({"x": torch.ones(5, 8, device=cuda)}, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        fedavg_agg.fedavg_agg_leaves({"x": torch.ones(4, 8)}, w)
+
+
 def cifar_round_inputs(cuda, K=13, E=2, b=16, seed=0):
     data = make_classification_data("cifar", 600, seed=seed)
     rng = np.random.default_rng(seed)
@@ -180,7 +249,7 @@ def cifar_round_inputs(cuda, K=13, E=2, b=16, seed=0):
 
 def test_host_round_launches_fedavg_agg_per_leaf(cuda):
     """``make_fl_round(use_agg_kernel=True)`` at CIFAR_CNN width launches
-    the kernel once per leaf (8) and agrees with the plain round."""
+    the kernel once for all 8 leaves and agrees with the plain round."""
     batches, w, mask, params = cifar_round_inputs(cuda)
     loss = lambda p, b: cnn.loss_fn(cnn.CIFAR_CNN, p, b)
     before = dict(ops.LAUNCHES)
@@ -190,7 +259,7 @@ def test_host_round_launches_fedavg_agg_per_leaf(cuda):
     pp, ip = make_fl_round(loss, local_lr=0.1, use_agg_kernel=True,
                            kernels=ops.PLAIN)(params, batches, w, mask)
     torch.cuda.synchronize()
-    assert {n: c for n, c in counts.items() if c} == {"fedavg_agg": 8}
+    assert {n: c for n, c in counts.items() if c} == {"fedavg_agg": 1}
     for n in pk:
         torch.testing.assert_close(pk[n], pp[n], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(ik["q_values"], ip["q_values"], rtol=0,
@@ -648,6 +717,61 @@ def test_swiglu_kernel_matches_plain(cuda, M, D, F, dtype):
     assert_serve_close("swiglu", got, ref.swiglu_ref(x, wg, wu))
     x3 = x.reshape(1, M, D)
     assert torch.equal(ops.swiglu(x3, wg, wu), got.reshape(1, M, F))
+
+
+# swiglu's serve shapes and ragged ones for its Hopper routes: M off 128,
+# D off 64, F off 128, two passes of rows at decode, the split-K route's
+# largest D, one row and one 8 x 8 tile
+SWIGLU_ROUTE_CASES = [(8192, 960, 2560), (8, 960, 2560), (8192, 1600, 5504),
+                      (4, 1600, 5504), (1000, 200, 72), (300, 1608, 136),
+                      (12, 1000, 520), (3, 2048, 64), (1, 8, 8), (129, 8, 8),
+                      (16, 32, 48), (17, 64, 136)]
+
+
+@pytest.mark.parametrize("M,D,F", SWIGLU_ROUTE_CASES, ids=str)
+def test_swiglu_every_route_matches_plain(cuda, M, D, F):
+    """bf16: the kernel ``route`` picks, and every other kernel that takes
+    the operands (below prefill size), against the plain version; every
+    call repeats bit for bit."""
+    x = randn((M, D), torch.bfloat16, 12, cuda)
+    wg = randn((D, F), torch.bfloat16, 13, cuda, D ** -0.5)
+    wu = randn((D, F), torch.bfloat16, 14, cuda, D ** -0.5)
+    want = ref.swiglu_ref(x, wg, wu)
+    kinds = kswiglu._routes(torch.bfloat16, M, D, F, True)
+    assert kinds[0] == kswiglu.route(torch.bfloat16, M, D, F, True)
+    for kind in kinds if M <= 1024 else kinds[:1]:
+        got = kswiglu.swiglu(x, wg, wu, kernel=kind)
+        assert_serve_close("swiglu", got, want)
+        assert torch.equal(got, kswiglu.swiglu(x, wg, wu, kernel=kind))
+
+
+def test_swiglu_routes_on_the_card(cuda):
+    """The serve shapes take the Hopper routes; D % 8 != 0 and a base off
+    16 bytes take mma.sync; a kernel that does not take the operands is
+    refused."""
+    bf = torch.bfloat16
+    shapes = {(8192, 960, 2560): "wgmma", (8, 960, 2560): "splitk",
+              (8192, 1600, 5504): "wgmma", (4, 1600, 5504): "splitk",
+              (64, 962, 72): "mma"}
+    for (M, D, F), kind in shapes.items():
+        x = torch.zeros(M, D, dtype=bf, device=cuda)
+        w = torch.zeros(D, F, dtype=bf, device=cuda)
+        assert kswiglu.route(bf, M, D, F, build.aligned16(x, w)) == kind
+    buf = torch.zeros(8 * 960 + 1, dtype=bf, device=cuda)
+    x = buf[1:].view(8, 960)
+    wg = randn((960, 64), bf, 15, cuda, 0.03)
+    assert not build.aligned16(x)
+    assert_serve_close("swiglu", ops.swiglu(x, wg, wg),
+                       ref.swiglu_ref(x, wg, wg))
+    with pytest.raises(ValueError, match="does not take"):
+        kswiglu.swiglu(torch.zeros(8, 962, dtype=bf, device=cuda),
+                       torch.zeros(962, 64, dtype=bf, device=cuda),
+                       torch.zeros(962, 64, dtype=bf, device=cuda),
+                       kernel="wgmma")
+    with pytest.raises(ValueError, match="does not take"):
+        kswiglu.swiglu(torch.zeros(8, 64, device=cuda),
+                       torch.zeros(64, 64, device=cuda),
+                       torch.zeros(64, 64, device=cuda), kernel="splitk")
 
 
 # (B, H, G, Sq, Sk, hd, causal, window): the sweep of tests/test_kernels.py,

@@ -196,6 +196,114 @@ def test_grid_depends_on_p_only():
     assert fedavg_agg.num_blocks(1_070_794) == fedavg_agg.MAX_BLOCKS
 
 
+def test_build_names_the_library_by_its_headers_too(monkeypatch, tmp_path):
+    """An edit to a header (``csrc/*.cuh``) the sources include names a
+    new library, so a stale one is never loaded; so does a source's."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert [p.name for p in build.headers()] == ["hopper.cuh"]
+    first = build._lib_path()
+    assert build._lib_path() == first
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    second = build._lib_path()
+    assert second != first and second.parent == build.BUILD_DIR
+    source = csrc / "swiglu.cu"
+    source.write_text(source.read_text() + "\n// an edit\n")
+    assert build._lib_path() not in (first, second)
+
+
+@pytest.mark.parametrize("leaves,want", [
+    # the CIFAR_CNN leaves (f32, 16-byte vectors where P allows): one table
+    ([(torch.float32, 864, 4), (torch.float32, 32, 4),
+      (torch.float32, 18_432, 4), (torch.float32, 64, 4),
+      (torch.float32, 1_048_576, 4), (torch.float32, 256, 4),
+      (torch.float32, 2_560, 4), (torch.float32, 10, 2)],
+     [(torch.float32, list(range(8)),
+       [0, 1, 2, 20, 21, 1045, 1046, 1049, 1050], 1050)]),
+    # one element, a partial chunk, and bf16's 8-wide vectors
+    ([(torch.bfloat16, 1, 1), (torch.bfloat16, 2049, 1),
+      (torch.bfloat16, 4096, 8)],
+     [(torch.bfloat16, [0, 1, 2], [0, 1, 10, 12], 12)]),
+    # two dtypes: a table each, in the order of their first leaf
+    ([(torch.bfloat16, 8, 8), (torch.float32, 8, 4), (torch.bfloat16, 16, 8)],
+     [(torch.bfloat16, [0, 2], [0, 1, 2], 2),
+      (torch.float32, [1], [0, 1], 1)]),
+    # a grid capped at AGG_BLOCKS chunks (the blocks walk the rest)
+    ([(torch.float32, 4 * 256 * 3000, 4)],
+     [(torch.float32, [0], [0, 3000], 2048)])])
+def test_fedavg_leaf_tables_offsets_and_chunks(leaves, want):
+    """Each leaf starts on a chunk of 256 column groups (so a block's
+    chunk lies in one leaf); leaves of one dtype share a table."""
+    got = fedavg_agg.leaf_tables(leaves)
+    assert [(t["dtype"], t["leaves"], t["chunk0"], t["blocks"])
+            for t in got] == want
+
+
+def test_fedavg_leaf_tables_split_past_the_maximum_and_refuse_dtypes():
+    n = 2 * fedavg_agg.MAX_LEAVES + 5
+    tables = fedavg_agg.leaf_tables([(torch.float32, 300, 4)] * n)
+    assert [len(t["leaves"]) for t in tables] == [fedavg_agg.MAX_LEAVES,
+                                                 fedavg_agg.MAX_LEAVES, 5]
+    assert sum((t["leaves"] for t in tables), []) == list(range(n))
+    for t in tables:
+        assert t["chunk0"] == list(range(len(t["leaves"]) + 1))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fedavg_agg.leaf_tables([(torch.float32, 8, 4), (torch.float16, 8, 8)])
+    assert fedavg_agg.leaf_tables([]) == []
+
+
+@pytest.mark.parametrize("dtype,M,D,F,aligned,want", [
+    # the four serve shapes: prefill takes wgmma, a decode step split-K
+    (torch.bfloat16, 8192, 960, 2560, True, "wgmma"),
+    (torch.bfloat16, 8, 960, 2560, True, "splitk"),
+    (torch.bfloat16, 8192, 1600, 5504, True, "wgmma"),
+    (torch.bfloat16, 4, 1600, 5504, True, "splitk"),
+    # the edges of the decode route: its rows and its D
+    (torch.bfloat16, 8, 1600, 5504, True, "splitk"),
+    (torch.bfloat16, 9, 960, 2560, True, "wgmma"),
+    (torch.bfloat16, 1, 2048, 64, True, "splitk"),
+    (torch.bfloat16, 1, 2056, 64, True, "wgmma"),
+    # ragged shapes TMA describes: any M, D and F multiples of 8
+    (torch.bfloat16, 1000, 200, 72, True, "wgmma"),
+    (torch.bfloat16, 3, 8, 8, True, "splitk"),
+    # what TMA cannot describe takes mma.sync
+    (torch.bfloat16, 8192, 962, 2560, True, "mma"),
+    (torch.bfloat16, 8, 960, 2564, True, "mma"),
+    (torch.bfloat16, 8192, 960, 2560, False, "mma"),
+    (torch.bfloat16, 8, 960, 2560, False, "mma"),
+    # f32 takes the CUDA-core kernel, whatever its shape
+    (torch.float32, 8192, 960, 2560, True, "simple"),
+    (torch.float32, 8, 960, 2560, True, "simple"),
+    (torch.float32, 5, 50, 37, False, "simple")])
+def test_swiglu_route(dtype, M, D, F, aligned, want):
+    from repro_torch.kernels import swiglu as ks
+    assert ks.route(dtype, M, D, F, aligned) == want
+    kinds = ks._routes(dtype, M, D, F, aligned)
+    assert kinds[0] == want and len(set(kinds)) == len(kinds)
+
+
+@pytest.mark.parametrize("D,F,sms,want", [
+    (960, 2560, 132, (6, 160)), (1600, 5504, 132, (7, 256)),
+    (2048, 64, 132, (8, 256)), (17, 8, 132, (1, 32)), (8, 8, 132, (1, 32)),
+    (960, 2560, 16, (4, 256)), (1600, 5504, 1, (7, 256)),
+    (960, 64, 132, (8, 128)), (100, 64, 132, (4, 32))])
+def test_swiglu_decode_split(D, F, sms, want):
+    """Splits of at most 256 rows of D (a multiple of the kernel's 32-row
+    TMA box), at most 8 (a portable cluster), as many as keep the blocks
+    within two an SM."""
+    from repro_torch.kernels import swiglu as ks
+    splits, kc = ks.decode_split(D, F, sms)
+    assert (splits, kc) == want
+    assert kc % ks.DECODE_CHUNK == 0 and kc <= ks.MAX_KC
+    assert 1 <= splits <= ks.MAX_SPLITS
+    assert kc * (splits - 1) < D <= kc * splits
+    tiles = -(-F // 64)
+    assert splits * tiles <= max(2 * sms, tiles * -(-D // ks.MAX_KC))
+
+
 # ---------------------------------------------------------------------------
 # segmented_topk
 # ---------------------------------------------------------------------------
