@@ -90,10 +90,13 @@ plain PyTorch version. Phases, one line each:
     params and history bit-equal; a device-plane chunk timed with the
     library's cuDNN pin and with PyTorch's defaults in its place;
 21. ``mlstm_scan`` against its plain version on the card, output and
-    final state, normalized (mLSTM) and SSD, f32 and bf16: at the two
-    full-width serve shapes, the reference's sweep, ragged S, odd and
-    largest widths, from an initial state, and through strided
-    (B, S, H, d) views;
+    final state, normalized (mLSTM) and SSD, f32 and bf16, each case
+    with the route it takes (the serve shapes in bf16 take the
+    chunk-parallel ``wgmma`` route, f32 the one-block kernel): at the two
+    full-width serve shapes, the reference's sweep, ragged S and S
+    under one chunk, chunks of 64 to 256, dk and dv at one tile and
+    several, odd and largest widths, from an initial state, and through
+    strided (B, S, H, d) views;
 22. the SSM serve path at full width: xLSTM-125M (12 layers, sLSTM at 3
     and 7), bf16, random weights from a seed, 4 prompts of 2,048 tokens
     and 32 new tokens, as phase 15: launches exactly 10 ``mlstm_scan``
@@ -264,7 +267,8 @@ def ptxas_entries(log: str) -> list[str]:
     out = []
     for full, rest in zip(names, entries):
         short = full.replace("(anonymous namespace)::", "").replace(
-            "<unnamed>::", "").replace("(int)", "").split("(")[0]
+            "<unnamed>::", "").replace("(int)", "").replace(
+            "(bool)0", "false").replace("(bool)1", "true").split("(")[0]
         out.append(f"{short.removeprefix('void ').strip()}: {rest}")
     return out
 
@@ -591,8 +595,9 @@ def timing(fleet) -> dict:
     phase(6, "median of 20 replays of a graph of 10 calls; bounds at "
              "3.35 TB/s and 67 TFLOP/s f32 (989 TFLOP/s bf16 for the "
              "products of swiglu and flash_attention and for mlstm_scan's "
-             "QK^T; its other products at the f32 rate, the oracle's "
-             "arithmetic, over the causal pairs of each chunk): "
+             "bf16 products over the causal pairs of each chunk, those "
+             "with an f32 operand counted three times, the split that "
+             "keeps f32 accuracy): "
              + " | ".join(lines))
     return out
 
@@ -806,11 +811,17 @@ def scan_inputs(B, H, S, dk, dv, normalize, dtype, g, init=False):
 
 def scan_bound(B, H, S, dk, dv, normalize, itemsize=2) -> dict:
     """The scan's least time. Products within each chunk over the causal
-    pairs c' <= c alone (the function needs no others): Q K^T, at the
-    bf16 tensor-core rate on bf16 inputs (exact there), and P V; then
-    q.S (and q.n with normalization) and the state update, all of these
-    at the f32 rate (the oracle's arithmetic). q, k, v and the gates
-    read once, the output and the f32 state written once."""
+    pairs c' <= c alone (the function needs no others): Q K^T and P V;
+    then q.S (and q.n with normalization) and the state update. On bf16
+    inputs Q K^T is exact on the tensor cores: one product at the bf16
+    rate. The others take an f32 operand (P, S, w o K), which the
+    tensor cores multiply to f32 accuracy as three bf16 products (the
+    operand split into hi + mid + lo, each exact times the bf16 one), so
+    they count three times at the bf16 rate (a third of 989 TFLOP/s is
+    about five times the f32 rate of 67: counted at the f32 rate, the
+    bound would lie above the time a kernel that splits can reach). In f32 every product is at
+    the f32 rate (the oracle's arithmetic). q, k, v and the gates read
+    once, the output and the f32 state written once."""
     qk = flops = 0
     for start in range(0, S, SCAN_CHUNK):
         c = min(SCAN_CHUNK, S - start)
@@ -819,16 +830,86 @@ def scan_bound(B, H, S, dk, dv, normalize, itemsize=2) -> dict:
         flops += 2 * pairs * dv + 4 * c * dk * dv
         if normalize:
             flops += 4 * c * dk
-    if itemsize != 2:
-        flops, qk = flops + qk, 0
     nbytes = (B * H * S * (2 * dk + 2 * dv) * itemsize
               + 4 * B * H * S * (2 if normalize else 1)
               + 4 * B * H * (dk * dv + dk + 1))
-    return bound(nbytes, B * H * flops, bf16_flops=B * H * qk)
+    if itemsize != 2:
+        return bound(nbytes, B * H * (flops + qk))
+    return bound(nbytes, 0, bf16_flops=B * H * (qk + 3 * flops))
+
+
+def scan_routed(call):
+    """Call ``call`` (one ``mlstm_scan`` launch) and return its result
+    and the route the wrapper took, read from ``kernels.mlstm_scan``'s
+    launch counts by route ("simple" for a tree whose binding keeps
+    none: one kernel for all)."""
+    from repro_torch.kernels import mlstm_scan as kscan
+    counts = getattr(kscan, "ROUTES", None)
+    if counts is None:
+        return call(), "simple"
+    before = dict(counts)
+    out = call()
+    taken = [r for r in counts if counts[r] != before[r]]
+    check(len(taken) == 1 and counts[taken[0]] == before[taken[0]] + 1,
+          f"mlstm_scan: one launch on one route, got {taken}")
+    return out, taken[0]
+
+
+def scan_cancel_inputs(part, g):
+    """bf16 inputs on which the chunked route's output needs every one of
+    the three bf16 terms of an f32 operand (S within one or two chunks of
+    256, so the part under test makes the output): ``"P"``, normalized,
+    one chunk from zeros, the keys in pairs with equal k, opposite v and
+    weights 2**-6 apart, so P V is a difference of near-equal terms; one
+    bf16 term of P (2**-9 of it) then misses by about 2**-3 of the output.
+    ``"S"``, SSD from an initial state whose rows come in pairs, S_2d+1 =
+    -(1 + 2**-6) S_2d, met by q equal in each pair, and v 2**-20 small,
+    so q . S_prev is such a difference. Returns (q, k, v, log f, log i,
+    state, chunk, normalize)."""
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    bf, d = torch.bfloat16, 2.0 ** -6
+    if part == "P":
+        B, H, S, dk, dv = 1, 4, 256, 64, 128
+        q = rn(B, H, S, dk).to(bf)
+        k = (rn(B, H, S // 2, dk) * dk ** -0.5).to(bf).repeat_interleave(2, 2)
+        v = rn(B, H, S // 2, dv).to(bf).repeat_interleave(2, 2)
+        v[:, :, 1::2] = -v[:, :, 1::2]
+        f = torch.nn.functional.logsigmoid(rn(B, H, S) + 4)
+        i = (rn(B, H, S // 2) * 0.5).repeat_interleave(2, 2)
+        i[..., 1::2] += f[..., 1::2] + d     # p_2t+1 = e^d p_2t
+        return q, k, v, f, i, None, 256, True
+    B, H, S, dk, dv = 1, 4, 300, 128, 128
+    q = rn(B, H, S, dk // 2).to(bf).repeat_interleave(2, 3)
+    k = (rn(B, H, S, dk) * dk ** -0.5).to(bf)
+    v = (rn(B, H, S, dv) * 2.0 ** -20).to(bf)
+    f = torch.nn.functional.logsigmoid(rn(B, H, S) + 4)
+    S0 = rn(B, H, dk // 2, dv).repeat_interleave(2, 2)
+    S0[:, :, 1::2] *= -(1 + d)
+    state = {"S": S0, "n": torch.zeros(B, H, dk, device="cuda"),
+             "m": torch.zeros(B, H, device="cuda")}
+    return q, k, v, f, None, state, 256, False
+
+
+def scan_ratio(case, got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) over the output and
+    the final S, n, m (held when at most 1): rtol 2**-7 (one bf16 ulp)
+    for a bf16 output, 1e-4 for f32, atol 2e-5 x max(1, max |want|); the
+    reasons are in tests/test_torch_cuda.py."""
+    worst = 0.0
+    for a, b in zip((got[0], *got[1].values()), (want[0], *want[1].values())):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"mlstm_scan {case}: dtype and shape")
+        rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+        a, b = a.float(), b.float()
+        lim = 2e-5 * max(1.0, float(b.abs().max())) + rtol * b.abs()
+        r = ((a - b).abs() / lim).nan_to_num(nan=float("inf"))
+        worst = max(worst, float(r.max()))
+    return worst
 
 
 def scan_timing(out) -> list[str]:
-    """``mlstm_scan`` at the two serve shapes in bf16, beside its plain
+    """``mlstm_scan`` at the two serve shapes in bf16, with the route it
+    takes and one call's device time by kernel name, beside its plain
     version and its bound; no PyTorch call computes gated linear
     attention (library null). Fills ``out`` and returns the phase-6
     lines."""
@@ -837,44 +918,37 @@ def scan_timing(out) -> list[str]:
     lines, t = [], {}
     for arch, (B, H, S, dk, dv, nz) in SCAN_SHAPES.items():
         q, k, v, f, i, _ = scan_inputs(B, H, S, dk, dv, nz, torch.bfloat16, g)
-        t[arch] = {"ms": time_ms(lambda: ops.mlstm_scan(
-                       q, k, v, f, i, chunk=SCAN_CHUNK, normalize=nz)),
+        call = lambda: ops.mlstm_scan(q, k, v, f, i, chunk=SCAN_CHUNK,
+                                      normalize=nz)
+        t[arch] = {"ms": time_ms(call),
                    "plain_ms": time_ms(lambda: ref.mlstm_scan_state_ref(
                        q, k, v, f, i, chunk=SCAN_CHUNK, normalize=nz)),
-                   "library_ms": None, **scan_bound(B, H, S, dk, dv, nz)}
+                   "library_ms": None, "route": scan_routed(call)[1],
+                   "split": launch_split(call),
+                   **scan_bound(B, H, S, dk, dv, nz)}
         r = t[arch]
         lines.append(f"mlstm_scan {arch} ({B}, {H}, {S}, {dk} / {dv}) bf16 "
-                     f"{'normalized' if nz else 'SSD'}, chunk {SCAN_CHUNK}: "
-                     f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
-                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                     f"{'normalized' if nz else 'SSD'}, chunk {SCAN_CHUNK}, "
+                     f"route {r['route']}: kernel {r['ms']:.4f} ms (one "
+                     f"call: {split_text(r['split'])}), plain "
+                     f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                     f"({r['bound_by']})")
     out["mlstm_scan"] = {**t["xlstm-125m"], "at_hymba": t["hymba-1.5b"]}
     return lines
 
 
-def scan_kernel_vs_plain() -> float:
-    """Phase 21: ``mlstm_scan`` against its plain version, output and
-    final state. Returns max |err| of the output at the two serve shapes
-    in bf16."""
+def scan_comparisons(g):
+    """Phase 21's cases, one at a time: ``(case, the route it must take
+    or None, the kernel's (out, state), the route it took, the plain
+    version's)``. (B, H, S, dk, dv, chunk, normalize, init): the serve
+    shapes (bf16: the chunk-parallel ``wgmma`` route); the reference's
+    sweep and odd widths (the one-block kernel in bf16 too: chunks under
+    64, dk 20, dv 65); for the chunked route dk and dv at one tile and
+    several, off the tile (72, 320), S under one chunk and ragged, chunks
+    of 64, 128 and 256, and dk 512; f32 always the one-block kernel.
+    Then Hymba's sliced (B, S, H, d) views through the bshd adapter, and
+    the two inputs of :func:`scan_cancel_inputs`."""
     from repro_torch.kernels import ops, ref
-    g = torch.Generator(device="cuda").manual_seed(22)
-    n, main, worst = 0, 0.0, 0.0
-
-    def held(case, got, want):
-        nonlocal n, worst
-        for a, b in zip((got[0], *got[1].values()),
-                        (want[0], *want[1].values())):
-            check(a.dtype == b.dtype and a.shape == b.shape,
-                  f"mlstm_scan {case}: dtype and shape")
-            rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
-            torch.testing.assert_close(
-                a.float(), b.float(), rtol=rtol,
-                atol=2e-5 * max(1.0, float(b.float().abs().max())),
-                msg=lambda m: f"mlstm_scan {case}: {m}")
-        err = float((got[0].float() - want[0].float()).abs().max())
-        worst = max(worst, err)
-        n += 1
-        return err
-
     cases = [(*SCAN_SHAPES[a][:5], SCAN_CHUNK, SCAN_SHAPES[a][5], False)
              for a in SCAN_SHAPES]
     for nz in (True, False):
@@ -884,43 +958,130 @@ def scan_kernel_vs_plain() -> float:
                   (1, 2, 300, 20, 70, 64, nz, True),
                   (2, 5, 700, 16, 64, 256, nz, True),
                   (1, 2, 1000, 384, 384, 256, nz, True),
-                  (1, 2, 129, 512, 65, 128, nz, False)]
+                  (1, 2, 129, 512, 65, 128, nz, False),
+                  (2, 2, 40, 64, 64, 256, nz, False),
+                  (1, 3, 200, 64, 64, 64, nz, True),
+                  (1, 2, 300, 128, 192, 128, nz, False),
+                  (1, 2, 130, 72, 320, 64, nz, True),
+                  (1, 2, 129, 512, 64, 128, nz, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, S, dk, dv, C, nz, init in cases:
             q, k, v, f, i, st = scan_inputs(B, H, S, dk, dv, nz, dtype, g,
                                             init)
+            serve = (B, H, S, dk, dv, nz) in SCAN_SHAPES.values()
             case = ((B, H, S, dk, dv), C, "mlstm" if nz else "ssd",
-                    "init" if init else "zero", dtype)
-            err = held(case, ops.mlstm_scan(q, k, v, f, i, chunk=C,
-                                            normalize=nz, initial_state=st),
-                       ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=C,
-                                                normalize=nz,
-                                                initial_state=st))
-            if (B, H, S, dk, dv, nz) in SCAN_SHAPES.values() \
-                    and dtype == torch.bfloat16:
-                main = max(main, err)
+                    "init" if init else "zero", str(dtype)[6:],
+                    "serve" if serve else "")
+            expect = "simple" if dtype == torch.float32 else \
+                "wgmma" if serve else None
+            got, route = scan_routed(lambda: ops.mlstm_scan(
+                q, k, v, f, i, chunk=C, normalize=nz, initial_state=st))
+            yield case, expect, got, route, ref.mlstm_scan_state_ref(
+                q, k, v, f, i, chunk=C, normalize=nz, initial_state=st)
         # Hymba's layout: C and B sliced from one (B, S, 2, H, N)
-        # projection, the gates (B, S, H), through the bshd adapter
+        # projection, the gates (B, S, H), through the bshd adapter; k
+        # scaled (a copy) and k the model's own strided slice
         B, S, H, N, dh = 2, 600, 25, 16, 64
         bc = torch.randn(B, S, 2, H, N, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dtype)
         f = -torch.rand(B, S, H, generator=g, device="cuda")
-        got = ops.mlstm_scan_bshd(bc[:, :, 1], bc[:, :, 0] * 0.25, v, f, None,
-                                  chunk=SCAN_CHUNK, normalize=False)
-        check(got[0].is_contiguous(), "bshd output (B, S, H, dv) contiguous")
-        held(("bshd views", dtype), got, ops.PLAIN.mlstm_scan_bshd(
-            bc[:, :, 1], bc[:, :, 0] * 0.25, v, f, None, chunk=SCAN_CHUNK,
-            normalize=False))
+        for kk in (bc[:, :, 0] * 0.25, bc[:, :, 0]):
+            got, route = scan_routed(lambda: ops.mlstm_scan_bshd(
+                bc[:, :, 1], kk, v, f, None, chunk=SCAN_CHUNK,
+                normalize=False))
+            check(got[0].is_contiguous(),
+                  "bshd output (B, S, H, dv) contiguous")
+            yield (("bshd views", "k copy" if kk.is_contiguous() else
+                    "k strided", str(dtype)[6:]),
+                   "wgmma" if dtype == torch.bfloat16 else "simple", got,
+                   route, ops.PLAIN.mlstm_scan_bshd(
+                       bc[:, :, 1], kk, v, f, None, chunk=SCAN_CHUNK,
+                       normalize=False))
+    for part in ("P", "S"):
+        q, k, v, f, i, st, C, nz = scan_cancel_inputs(part, g)
+        got, route = scan_routed(lambda: ops.mlstm_scan(
+            q, k, v, f, i, chunk=C, normalize=nz, initial_state=st))
+        yield ("cancel", part), "wgmma", got, route, \
+            ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=C, normalize=nz,
+                                     initial_state=st)
+
+
+# S long against one call's memory: the chunked route's scratch is one
+# f32 state a chunk, about 305 MB at this shape (NC = 128)
+SCAN_LONG = (1, 4, 32768, 384, 384)
+
+
+def scan_long() -> dict:
+    """``mlstm_scan`` at ``SCAN_LONG`` in bf16, normalized: held to the
+    plain version, and the memory the call takes above its inputs (the
+    allocator's peak) at most its output, its final state and the
+    workspace :func:`kernels.mlstm_scan.workspace` states, plus 2 MB of
+    the allocator's rounding."""
+    from repro_torch.kernels import mlstm_scan as kscan
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(23)
+    B, H, S, dk, dv = SCAN_LONG
+    q, k, v, f, i, _ = scan_inputs(B, H, S, dk, dv, True, torch.bfloat16, g)
     torch.cuda.synchronize()
-    phase(21, f"mlstm_scan vs plain on the card: {n} cases (the serve "
-              f"shapes {list(SCAN_SHAPES.values())}; (B, H, S, dk, dv) from "
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, route = scan_routed(lambda: ops.mlstm_scan(
+        q, k, v, f, i, chunk=SCAN_CHUNK, normalize=True))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    ws = 4 * kscan.workspace(B, H, S, dk, dv, SCAN_CHUNK)
+    allowed = (got[0].nbytes + sum(t.nbytes for t in got[1].values()) + ws
+               + 2 ** 21)
+    check(route == "wgmma", f"mlstm_scan {SCAN_LONG}: route {route}")
+    check(extra <= allowed, f"mlstm_scan {SCAN_LONG}: {extra} bytes above "
+                            f"the inputs, more than {allowed}")
+    ratio = scan_ratio(SCAN_LONG, got, ref.mlstm_scan_state_ref(
+        q, k, v, f, i, chunk=SCAN_CHUNK, normalize=True))
+    check(ratio <= 1.0, f"mlstm_scan {SCAN_LONG}: err / limit {ratio:.3g}")
+    return {"extra_mb": extra / 2 ** 20, "workspace_mb": ws / 2 ** 20,
+            "ratio": ratio}
+
+
+def scan_kernel_vs_plain() -> float:
+    """Phase 21: ``mlstm_scan`` against its plain version, output and
+    final state, over :func:`scan_comparisons`, each case on the route
+    the wrapper reports it took (the serve shapes and the views in bf16
+    on the chunk-parallel ``wgmma`` route, f32 on the one-block kernel),
+    and :func:`scan_long`. Returns max |err| of the output at the two
+    serve shapes in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    n, main, worst, routes, cancel = 0, 0.0, 0.0, {}, {}
+    for case, expect, got, route, want in scan_comparisons(g):
+        check(expect is None or route == expect,
+              f"mlstm_scan {case}: route {route}, not {expect}")
+        ratio = scan_ratio(case, got, want)
+        check(ratio <= 1.0, f"mlstm_scan {case}: err / limit {ratio:.3g}")
+        err = float((got[0].float() - want[0].float()).abs().max())
+        worst = max(worst, err)
+        if "serve" in case and "bfloat16" in case:
+            main = max(main, err)
+        if case[0] == "cancel":
+            cancel[case[1]] = ratio
+        n += 1
+        routes[route] = routes.get(route, 0) + 1
+    long = scan_long()
+    torch.cuda.synchronize()
+    phase(21, f"mlstm_scan vs plain on the card: {n} cases, by the route "
+              f"each took {routes} (the serve shapes {list(SCAN_SHAPES.values())} in "
+              f"bf16 on the wgmma route; (B, H, S, dk, dv) from "
               f"(2, 3, 16, 16, 8) to (1, 2, 1000, 384, 384) and dk 512, "
-              f"chunks 8-256, ragged S, from zeros and from an initial "
-              f"state; Hymba's sliced (B, S, H, d) views), normalized and "
-              f"SSD, f32 and bf16: output and final S, n, m within the "
-              f"stated tolerances; max |err| of the output at the serve "
-              f"shapes in bf16 {main:.3e}, largest over all cases "
-              f"{worst:.3e}")
+              f"chunks 8-256, S under one chunk and ragged, dk and dv at "
+              f"one 64-wide tile and several and off the tile, from zeros "
+              f"and from an initial state; Hymba's sliced (B, S, H, d) "
+              f"views, k a copy and k strided too), normalized and SSD, f32 and "
+              f"bf16: output and final S, n, m within the stated "
+              f"tolerances; max |err| of the output at the serve shapes in "
+              f"bf16 {main:.3e}, largest over all cases {worst:.3e}; "
+              f"inputs that need all three bf16 terms, err / limit "
+              f"{cancel.get('P', 0):.4f} (P V) and {cancel.get('S', 0):.4f} "
+              f"(q . S_prev); {SCAN_LONG} bf16: err / limit "
+              f"{long['ratio']:.4f}, {long['extra_mb']:.1f} MB above the "
+              f"inputs, the workspace {long['workspace_mb']:.1f} MB of it")
     return main
 
 

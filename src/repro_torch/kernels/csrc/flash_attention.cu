@@ -822,25 +822,6 @@ unsigned tile_grid(const Shape& s, int B) {
   return blocks <= 2147483647LL ? (unsigned)blocks : 0u;
 }
 
-// A bf16 (hd, S, heads, B) map of the tensor at ptr with strides (in
-// elements) ss, sh, sb and boxes of 64 dims x rows, 128-byte swizzled; out of
-// range elements read as zeros. A unit axis takes any stride.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B, long long ss,
-              long long sh, long long sb, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  const long long unit = 2LL * hd;
-  const cuuint64_t strides[3] = {(cuuint64_t)(S > 1 ? 2 * ss : unit),
-                                 (cuuint64_t)(heads > 1 ? 2 * sh : unit),
-                                 (cuuint64_t)(B > 1 ? 2 * sb : unit)};
-  const cuuint32_t box[4] = {64u, (cuuint32_t)rows, 1u, 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_wgmma_hd(const void* q, const void* k, const void* v, void* o, const Shape& s, int B,
                     cudaStream_t st) {

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (flash_attention.cu, swiglu.cu): shared-memory addresses, mbarrier waits
-// and arrivals, TMA loads and stores of 4-D and 2-D tensor maps, the 128-byte
-// swizzle wgmma descriptor, wgmma's fences, commits and waits, and the host's
-// cuTensorMapEncodeTiled reached through the runtime. Everything sits in an
+// (flash_attention.cu, swiglu.cu, mlstm_scan.cu): shared-memory addresses,
+// mbarrier waits and arrivals, TMA loads and stores of 4-D and 2-D tensor
+// maps, the 128-byte swizzle wgmma descriptor, wgmma's fences, commits and
+// waits, and the host's cuTensorMapEncodeTiled reached through the runtime
+// with the 4-D and 2-D bf16 maps built on it. Everything sits in an
 // anonymous namespace, so each source that includes it holds its own copy
 // and the library links without duplicate symbols. build.py hashes this
 // header with the sources, so an edit here rebuilds the library.
@@ -173,6 +174,25 @@ bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, long lon
   const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1u, 1u};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 (hd, S, heads, B) map of the tensor at ptr with strides (in
+// elements) ss, sh, sb and boxes of 64 dims x rows, 128-byte swizzled; out of
+// range elements read as zeros. A unit axis takes any stride.
+bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B, long long ss,
+              long long sh, long long sb, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const long long unit = 2LL * hd;
+  const cuuint64_t strides[3] = {(cuuint64_t)(S > 1 ? 2 * ss : unit),
+                                 (cuuint64_t)(heads > 1 ? 2 * sh : unit),
+                                 (cuuint64_t)(B > 1 ? 2 * sb : unit)};
+  const cuuint32_t box[4] = {64u, (cuuint32_t)rows, 1u, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

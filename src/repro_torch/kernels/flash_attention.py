@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import build
+from .tma import tma_describable
 
 MAX_HD = 256
 # The head sizes each bf16 tensor-core kernel takes; f32, and bf16 at
@@ -49,17 +50,6 @@ def uses_mma(dtype: torch.dtype, hd: int) -> bool:
 def uses_wgmma(dtype: torch.dtype, hd: int) -> bool:
     """Whether a call takes the Hopper kernel (``wgmma`` fed by TMA)."""
     return route(dtype, hd) == "wgmma"
-
-
-def tma_describable(t: torch.Tensor) -> bool:
-    """Whether a TMA tensor map can describe ``t`` (B, heads, S, hd) in
-    place: its first element on a 16-byte boundary, hd contiguous and
-    every other stride a positive multiple of 16 bytes below 2**40 bytes
-    (a unit axis takes any stride). Otherwise the wrapper copies it."""
-    size = t.element_size()
-    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
-            and all(n == 1 or (0 < st * size < 2 ** 40 and st * size % 16 == 0)
-                    for n, st in zip(t.shape[:3], t.stride()[:3])))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -47,7 +47,9 @@ state within rtol 1e-4 and an atol of 2e-5 x max(1, the largest |value|)
 (seen: 1.1e-5 relative at dk = dv = 384; the floor holds a state that is
 0 on one side, as the SSD form's m, to f32 rounding of unit-scale
 gates); a bf16 output, rounded once from f32 on both sides, within one
-bf16 ulp (rtol 2**-7) and the same atol.
+bf16 ulp (rtol 2**-7) and the same atol. The chunked route (bf16) takes
+each f32 operand of a product as three exact bf16 terms on the tensor
+cores, summed in f32, so it is held to the same tolerances.
 """
 import dataclasses
 
@@ -73,6 +75,7 @@ from repro_torch.kernels import mlstm_scan as kmlstm
 from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels import segmented_topk
 from repro_torch.kernels import swiglu as kswiglu
+from repro_torch.kernels import tma
 from repro_torch.models import cnn
 from repro_torch.models import transformer as T
 
@@ -888,11 +891,16 @@ def test_reduced_serve_kernels_vs_plain(cuda, dtype):
 
 
 # (B, H, S, dk, dv, chunk): the reference's sweep, ragged S and odd
-# widths, Hymba's head (dk 16, dv 64) and xLSTM's (384 / 384)
+# widths, Hymba's head (dk 16, dv 64) and xLSTM's (384 / 384); for the
+# chunked route (bf16) also S under one chunk, dk and dv at one 64-wide
+# tile and several and off the tile, chunks of 64 and 128, and dk 512
 SCAN_CASES = [(2, 3, 32, 16, 8, 8), (2, 3, 40, 16, 8, 16),
               (2, 3, 16, 16, 8, 16), (1, 2, 300, 20, 70, 64),
               (2, 5, 700, 16, 64, 256), (1, 2, 600, 384, 384, 256),
-              (1, 1, 5, 1, 1, 256), (1, 2, 129, 512, 65, 128)]
+              (1, 1, 5, 1, 1, 256), (1, 2, 129, 512, 65, 128),
+              (2, 2, 40, 64, 64, 256), (1, 3, 200, 64, 64, 64),
+              (1, 2, 300, 128, 192, 128), (1, 2, 130, 72, 320, 64),
+              (1, 2, 129, 512, 64, 128)]
 
 
 def scan_inputs(B, H, S, dk, dv, normalize, dtype, device, seed=0,
@@ -926,14 +934,22 @@ def assert_scan_close(got, want):
 @pytest.mark.parametrize("case", SCAN_CASES, ids=str)
 def test_mlstm_scan_kernel_matches_plain(cuda, case, dtype, normalize, init):
     """Output and final state (S, n, m) against the plain version, from
-    zeros and from a given initial state; one launch, repeatable."""
+    zeros and from a given initial state; one launch, repeatable. bf16
+    takes the chunked route wherever dk and dv are multiples of 8 and
+    the chunk of 64 (Hymba's and xLSTM's heads among them), f32 always
+    the one-block kernel."""
     B, H, S, dk, dv, chunk = case
     q, k, v, f, i, st = scan_inputs(B, H, S, dk, dv, normalize, dtype, cuda,
                                     init=init)
-    before = ops.LAUNCHES["mlstm_scan"]
+    chunked = (dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0
+               and chunk % 64 == 0)
+    kind = "wgmma" if chunked else "simple"
+    assert kmlstm.route(dtype, dk, dv, chunk) == kind
+    before, routes = ops.LAUNCHES["mlstm_scan"], dict(kmlstm.ROUTES)
     got = ops.mlstm_scan(q, k, v, f, i, chunk=chunk, normalize=normalize,
                          initial_state=st)
     assert ops.LAUNCHES["mlstm_scan"] == before + 1
+    assert kmlstm.ROUTES == {**routes, kind: routes[kind] + 1}
     want = ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=chunk,
                                     normalize=normalize, initial_state=st)
     assert_scan_close(got, want)
@@ -942,22 +958,31 @@ def test_mlstm_scan_kernel_matches_plain(cuda, case, dtype, normalize, init):
     assert torch.equal(again[0], got[0])
 
 
+@pytest.mark.parametrize("k_view", [False, True], ids=["k_copy", "k_view"])
 @pytest.mark.parametrize("normalize", [True, False], ids=["mlstm", "ssd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mlstm_scan_bshd_reads_views_in_place(cuda, dtype, normalize):
+def test_mlstm_scan_bshd_reads_views_in_place(cuda, dtype, normalize, k_view):
     """The blocks' (B, S, H, d) tensors go in as transposed views, q a
-    slice of a wider projection as Hymba's C is; the output comes back
-    (B, S, H, dv) contiguous."""
+    slice of a wider projection as Hymba's C is (and k too, as Hymba's B
+    is, with ``k_view``); the output comes back (B, S, H, dv)
+    contiguous. In bf16 the views take the chunked route (TMA maps read
+    them in place)."""
     B, S, H, dk, dv = 2, 300, 5, 16, 64
     g = torch.Generator(device=cuda).manual_seed(3)
     bc = torch.randn(B, S, 2, H, dk, generator=g, device=cuda).to(dtype)
-    q, k = bc[:, :, 1], bc[:, :, 0] * 0.25
+    q, k = bc[:, :, 1], bc[:, :, 0] if k_view else bc[:, :, 0] * 0.25
+    t = lambda x: x.transpose(1, 2)
+    kind = "wgmma" if dtype == torch.bfloat16 else "simple"
+    assert kmlstm.route(dtype, dk, dv, 128, all(
+        tma.tma_describable(t(x)) for x in (q, k))) == kind
     v = torch.randn(B, S, H, dv, generator=g, device=cuda).to(dtype)
     f = torch.nn.functional.logsigmoid(
         torch.randn(B, S, H, generator=g, device=cuda) + 2)
     i = torch.randn(B, S, H, generator=g, device=cuda) if normalize else None
+    routes = dict(kmlstm.ROUTES)
     out, state = ops.mlstm_scan_bshd(q, k, v, f, i, chunk=128,
                                      normalize=normalize)
+    assert kmlstm.ROUTES == {**routes, kind: routes[kind] + 1}
     assert out.is_contiguous() and out.shape == (B, S, H, dv)
     want = ops.PLAIN.mlstm_scan_bshd(q, k, v, f, i, chunk=128,
                                      normalize=normalize)
@@ -986,6 +1011,103 @@ def test_mlstm_scan_refuses_bad_inputs(cuda):
             "m": torch.zeros(1, 2, device=cuda)})
     with pytest.raises(ValueError, match="one CUDA device"):
         kmlstm.mlstm_scan(q, q, v, f.cpu())
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["mlstm", "ssd"])
+def test_mlstm_scan_routes_agree(cuda, normalize):
+    """In bf16 the chunked route holds to the plain version, and operands
+    it does not take (dk 20, a view TMA cannot describe) go to the
+    one-block kernel, read in place, which holds to it too; the route
+    each call took is the one ``route()`` gives."""
+    q, k, v, f, i, st = scan_inputs(1, 3, 300, 64, 128, normalize,
+                                    torch.bfloat16, cuda, seed=5, init=True)
+    off = torch.empty(1, 3, 300, 72, dtype=torch.bfloat16,
+                      device=cuda)[..., 4:68]
+    off.copy_(q)
+    q20 = q[..., :20].contiguous()
+    assert not tma.tma_describable(off)
+    assert kmlstm.route(torch.bfloat16, 20, 128, 128) == "simple"
+    for qq, kk, state, kind in ((q, k, st, "wgmma"), (off, k, None, "simple"),
+                                (q20, q20, None, "simple")):
+        assert kmlstm.route(torch.bfloat16, qq.shape[3], 128, 128, all(
+            tma.tma_describable(x) for x in (qq, kk, v))) == kind
+        routes = dict(kmlstm.ROUTES)
+        got = kmlstm.mlstm_scan(qq, kk, v, f, i, chunk=128,
+                                normalize=normalize, initial_state=state)
+        assert kmlstm.ROUTES == {**routes, kind: routes[kind] + 1}
+        assert_scan_close(got, ref.mlstm_scan_state_ref(
+            qq, kk, v, f, i, chunk=128, normalize=normalize,
+            initial_state=state))
+
+
+def cancel_inputs(part, device, seed=0):
+    """bf16 inputs on which the output needs all three bf16 terms of an
+    f32 operand (``chip_smoke.scan_cancel_inputs``): ``"P"``, normalized,
+    one chunk of 256, keys in pairs with equal k, opposite v and weights
+    2**-6 apart, so P V is a difference of near-equal terms; ``"S"``, SSD
+    over two chunks from an initial state with rows in pairs, S_2d+1 =
+    -(1 + 2**-6) S_2d, q equal in each pair and v 2**-20 small. One bf16
+    term of either misses by about 2**-3 of the output. Returns (q, k,
+    v, log f, log i, state, chunk, normalize)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=device)
+    bf, d = torch.bfloat16, 2.0 ** -6
+    if part == "P":
+        B, H, S, dk, dv = 1, 4, 256, 64, 128
+        q = rn(B, H, S, dk).to(bf)
+        k = (rn(B, H, S // 2, dk) * dk ** -0.5).to(bf).repeat_interleave(2, 2)
+        v = rn(B, H, S // 2, dv).to(bf).repeat_interleave(2, 2)
+        v[:, :, 1::2] = -v[:, :, 1::2]
+        f = torch.nn.functional.logsigmoid(rn(B, H, S) + 4)
+        i = (rn(B, H, S // 2) * 0.5).repeat_interleave(2, 2)
+        i[..., 1::2] += f[..., 1::2] + d
+        return q, k, v, f, i, None, 256, True
+    B, H, S, dk, dv = 1, 4, 300, 128, 128
+    q = rn(B, H, S, dk // 2).to(bf).repeat_interleave(2, 3)
+    k = (rn(B, H, S, dk) * dk ** -0.5).to(bf)
+    v = (rn(B, H, S, dv) * 2.0 ** -20).to(bf)
+    f = torch.nn.functional.logsigmoid(rn(B, H, S) + 4)
+    S0 = rn(B, H, dk // 2, dv).repeat_interleave(2, 2)
+    S0[:, :, 1::2] *= -(1 + d)
+    state = {"S": S0, "n": torch.zeros(B, H, dk, device=device),
+             "m": torch.zeros(B, H, device=device)}
+    return q, k, v, f, None, state, 256, False
+
+
+@pytest.mark.parametrize("part", ["P", "S"])
+def test_mlstm_scan_keeps_all_three_bf16_terms(cuda, part):
+    """On inputs where P V (``"P"``) or q . S_prev (``"S"``) is a
+    difference of near-equal terms the chunked route still holds to the
+    plain version: a kernel that multiplied one bf16 term of P or of the
+    entering state would miss by far (``tests/test_torch_ssm.py`` shows
+    it on the CPU mirror)."""
+    q, k, v, f, i, st, chunk, nz = cancel_inputs(part, cuda)
+    routes = dict(kmlstm.ROUTES)
+    got = ops.mlstm_scan(q, k, v, f, i, chunk=chunk, normalize=nz,
+                         initial_state=st)
+    assert kmlstm.ROUTES == {**routes, "wgmma": routes["wgmma"] + 1}
+    assert_scan_close(got, ref.mlstm_scan_state_ref(
+        q, k, v, f, i, chunk=chunk, normalize=nz, initial_state=st))
+
+
+def test_mlstm_scan_long_sequence_memory(cuda):
+    """S of 16,384 at xLSTM-125M's heads in bf16: held to the plain
+    version, and the call takes no more memory above its inputs than its
+    output, its final state and the stated workspace (one f32 state a
+    chunk), plus the allocator's rounding."""
+    B, H, S, dk, dv = 1, 2, 16384, 384, 384
+    q, k, v, f, i, _ = scan_inputs(B, H, S, dk, dv, True, torch.bfloat16,
+                                   cuda, seed=9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = ops.mlstm_scan(q, k, v, f, i, chunk=256, normalize=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= (got[0].nbytes + sum(t.nbytes for t in got[1].values())
+                     + 4 * kmlstm.workspace(B, H, S, dk, dv, 256) + 2 ** 21)
+    assert_scan_close(got, ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=256,
+                                                    normalize=True))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

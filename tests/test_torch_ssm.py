@@ -379,3 +379,325 @@ def test_kernel_binding_refuses_cpu_tensors():
                                                         True, layout="bhsd")
     with pytest.raises(ValueError, match="CUDA device"):
         kmlstm.mlstm_scan(q, k, v, f, i, chunk=4)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's chunked route (bf16), as a plain-torch mirror of its passes
+# ---------------------------------------------------------------------------
+
+def bf16_terms(x, terms):
+    """The sum of the first ``terms`` of x's split into bf16 terms (hi =
+    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)), in f32: all
+    three give x exactly."""
+    out, rest = torch.zeros_like(x), x
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out, rest = out + t, rest - t
+    return out
+
+
+def chunked_passes(q, k, v, log_f, log_i=None, *, chunk, normalize,
+                   initial_state=None, terms=3):
+    """The chunked route's three passes in f32 torch, (B, H, S, d) layout.
+    Gate pass: g summed in order from each chunk's start, the row
+    stabilizer from a running max of i - g, one walk over the chunks for
+    their stabilizers and decays, then the key weights. State pass: the
+    state entering every chunk. Output pass: every chunk at once from its
+    entering state and its own keys, y = w_inter (q . S_prev) + P V, with
+    P and S_prev as the first ``terms`` of their bf16 split (the kernel
+    multiplies all three: exact). Returns ``(out in v's type, {S, n, m},
+    {"m_enter", "g"})``."""
+    B, H, S_, dk = q.shape
+    dv = v.shape[3]
+    nc = -(-S_ // chunk)
+    pad = nc * chunk - S_
+    f = torch.nn.functional.pad(log_f.float(), (0, pad)).reshape(
+        B, H, nc, chunk)
+    i = torch.zeros_like(log_f) if log_i is None else log_i.float()
+    i = torch.nn.functional.pad(i, (0, pad), value=float("-inf")).reshape(
+        B, H, nc, chunk)
+    qc, kc, vc = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+                  .reshape(B, H, nc, chunk, -1) for x in (q, k, v))
+    # gate pass
+    g, run = torch.empty_like(f), torch.zeros(B, H, nc)
+    for c in range(chunk):
+        run = run + f[..., c]
+        g[..., c] = run
+    prefix = torch.cummax(i - g, dim=-1).values
+    G = g[..., -1]
+    L = ((G[..., None] - g) + i).amax(-1)
+    m = torch.zeros(B, H) if initial_state is None else \
+        initial_state["m"].float()
+    enter, decay = [], []
+    for j in range(nc):
+        enter.append(m)
+        m_new = torch.maximum(G[..., j] + m, L[..., j])
+        m_new = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        decay.append(torch.exp((G[..., j] + m) - m_new))
+        m = m_new
+    m_enter = torch.stack(enter, -1)
+    m_next = torch.cat([m_enter[..., 1:], m[..., None]], -1)
+    M = torch.maximum(g + m_enter[..., None], g + prefix)
+    M = torch.where(torch.isfinite(M), M, 0.0)
+    if not normalize:
+        M = torch.zeros_like(M)
+    w = torch.exp(((G[..., None] - g) + i) - m_next[..., None])
+    # state pass
+    if initial_state is None:
+        Sm, nm = torch.zeros(B, H, dk, dv), torch.zeros(B, H, dk)
+    else:
+        Sm, nm = initial_state["S"].float(), initial_state["n"].float()
+    S_in, n_in = [], []
+    for j in range(nc):
+        S_in.append(Sm)
+        n_in.append(nm)
+        wj, kj = w[:, :, j], kc[:, :, j]
+        Sm = decay[j][..., None, None] * Sm + torch.einsum(
+            "bhc,bhcd,bhce->bhde", wj, kj, vc[:, :, j])
+        nm = decay[j][..., None] * nm + torch.einsum("bhc,bhcd->bhd", wj, kj)
+    S_in, n_in = torch.stack(S_in, 2), torch.stack(n_in, 2)
+    # output pass
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    w_inter = torch.exp((g + m_enter[..., None]) - M)
+    weight = torch.where(causal, torch.exp(
+        ((g[..., :, None] - g[..., None, :]) + i[..., None, :])
+        - M[..., None]), 0.0)
+    P = torch.einsum("bhjcd,bhjed->bhjce", qc, kc) * weight
+    y = w_inter[..., None] * torch.einsum(
+        "bhjcd,bhjde->bhjce", qc, bf16_terms(S_in, terms)) \
+        + torch.einsum("bhjce,bhjed->bhjcd", bf16_terms(P, terms), vc)
+    if normalize:
+        nrm = P.sum(-1) + w_inter * torch.einsum("bhjcd,bhjd->bhjc", qc, n_in)
+        y = y / torch.maximum(nrm.abs(), torch.exp(-M))[..., None]
+    out = y.reshape(B, H, nc * chunk, dv)[:, :, :S_].to(v.dtype)
+    return out, {"S": Sm, "n": nm, "m": m}, {"m_enter": m_enter, "g": g}
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("normalize", [True, False], ids=["mlstm", "ssd"])
+@pytest.mark.parametrize("seq,chunk", [(64, 64), (40, 64), (150, 64),
+                                       (200, 128)])
+def test_chunked_passes_match_plain_and_reference(seq, chunk, normalize,
+                                                  init):
+    """The mirror of the chunked route, S a whole chunk, under one chunk
+    and ragged, from zeros and from an initial state: output and final
+    state against the port's plain version and the reference's oracle
+    (2e-5), and the output against the reference's ``mlstm_scan_ref``."""
+    (q, qj), (k, kj), (v, vj), (f, fj), (i, ij) = gla_inputs(
+        2, seq, 3, 16, 8, seq + chunk + 7 * init, normalize, layout="bhsd")
+    st, jst = state_pair(2, 3, 16, 8, seq) if init else (None, None)
+    out, state, _ = chunked_passes(q, k, v, f, i, chunk=chunk,
+                                   normalize=normalize, initial_state=st)
+    want, wstate = ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=chunk,
+                                            normalize=normalize,
+                                            initial_state=st)
+    close(out, want.numpy())
+    close_state(state, {n: t.numpy() for n, t in wstate.items()})
+    sw = lambda x: None if x is None else jnp.swapaxes(x, 1, 2)
+    jout, jstate = JS.gated_linear_attention(
+        sw(qj), sw(kj), sw(vj), sw(fj), sw(ij), chunk=chunk,
+        normalize=normalize, initial_state=jst)
+    close(out, sw(jout))
+    close_state(state, jstate)
+    if not init:
+        close(out, jref.mlstm_scan_ref(qj, kj, vj, fj, ij, chunk=chunk,
+                                       normalize=normalize))
+
+
+@pytest.mark.parametrize("normalize", [True, False], ids=["mlstm", "ssd"])
+def test_chunked_passes_bfloat16(normalize):
+    """bf16 q, k, v (the chunked route's inputs): the mirror, computing
+    in f32 from the exact bf16 values and rounding once, within one bf16
+    ulp of the plain version; the f32 state within 2e-5."""
+    (q, _), (k, _), (v, _), (f, _), (i, _) = gla_inputs(
+        1, 130, 2, 16, 64, 41, normalize, layout="bhsd")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out, state, _ = chunked_passes(qb, kb, vb, f, i, chunk=64,
+                                   normalize=normalize)
+    want, wstate = ref.mlstm_scan_state_ref(qb, kb, vb, f, i, chunk=64,
+                                            normalize=normalize)
+    assert out.dtype == torch.bfloat16
+    close(out, want.float().numpy(), **BF16_TOL)
+    close_state(state, {n: t.numpy() for n, t in wstate.items()})
+
+
+@pytest.mark.parametrize("seq,chunk", [(256, 64), (300, 128), (70, 64)])
+def test_chunked_passes_ssd_state_stabilizer_is_zero(seq, chunk):
+    """The SSD form's m stays exactly 0: g summed in order is
+    non-increasing for log f <= 0, so every G - g_c <= 0 and no chunk
+    stabilizer leaves 0, as in the oracle."""
+    (q, _), (k, _), (v, _), (f, _), _ = gla_inputs(
+        2, seq, 3, 16, 8, seq, False, layout="bhsd")
+    _, state, gates = chunked_passes(q, k, v, f, None, chunk=chunk,
+                                     normalize=False)
+    assert torch.equal(state["m"], torch.zeros(2, 3))
+    assert torch.equal(gates["m_enter"], torch.zeros_like(gates["m_enter"]))
+    g = gates["g"]
+    assert bool((g[..., 1:] <= g[..., :-1]).all())
+    assert bool((g[..., -1:] - g <= 0).all())
+
+
+def cancel_inputs(part, seed=0):
+    """bf16 inputs (torch) on which the output needs all three bf16 terms
+    of an f32 operand, as ``chip_smoke.scan_cancel_inputs`` makes them on
+    the card: ``"P"``, normalized, one chunk of 256 from zeros, keys in
+    pairs with equal k, opposite v and weights 2**-6 apart (P V a
+    difference of near-equal terms); ``"S"``, SSD over two chunks from an
+    initial state with rows in pairs, S_2d+1 = -(1 + 2**-6) S_2d, q equal
+    in each pair and v 2**-20 small (q . S_prev such a difference).
+    Returns (q, k, v, log f, log i, state, chunk, normalize)."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    rep2 = lambda a, axis: np.repeat(a, 2, axis=axis)
+    bf = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(torch.bfloat16)
+    logsig = lambda a: -np.logaddexp(0.0, -a).astype(np.float32)
+    d = np.float32(2.0 ** -6)
+    if part == "P":
+        B, H, S_, dk, dv = 1, 4, 256, 64, 128
+        q = n(B, H, S_, dk)
+        k = rep2(n(B, H, S_ // 2, dk) * np.float32(dk ** -0.5), 2)
+        v = rep2(n(B, H, S_ // 2, dv), 2)
+        v[:, :, 1::2] *= -1
+        f = logsig(n(B, H, S_) + 4)
+        i = rep2(n(B, H, S_ // 2) * np.float32(0.5), 2)
+        i[..., 1::2] += f[..., 1::2] + d
+        return (bf(q), bf(k), bf(v), torch.as_tensor(f), torch.as_tensor(i),
+                None, 256, True)
+    B, H, S_, dk, dv = 1, 4, 300, 128, 128
+    q = rep2(n(B, H, S_, dk // 2), 3)
+    k = n(B, H, S_, dk) * np.float32(dk ** -0.5)
+    v = n(B, H, S_, dv) * np.float32(2.0 ** -20)
+    f = logsig(n(B, H, S_) + 4)
+    S0 = rep2(n(B, H, dk // 2, dv), 2)
+    S0[:, :, 1::2] *= -(1 + d)
+    state = {"S": torch.as_tensor(S0), "n": torch.zeros(B, H, dk),
+             "m": torch.zeros(B, H)}
+    return bf(q), bf(k), bf(v), torch.as_tensor(f), None, state, 256, False
+
+
+def err_over_limit(got, want):
+    """The largest |got - want| / (atol + rtol |want|) over the output and
+    the final state, at the card checks' tolerances (rtol 2**-7 for a
+    bf16 output, 1e-4 for the f32 state, atol 2e-5 x max(1, max
+    |want|)): at most 1 holds."""
+    worst = 0.0
+    for a, b in zip((got[0], *got[1].values()), (want[0], *want[1].values())):
+        rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+        a, b = a.float(), b.float()
+        lim = 2e-5 * max(1.0, float(b.abs().max())) + rtol * b.abs()
+        worst = max(worst, float(((a - b).abs() / lim).max()))
+    return worst
+
+
+@pytest.mark.parametrize("part", ["P", "S"])
+def test_cancelling_inputs_need_all_three_bf16_terms(part):
+    """On the card checks' cancelling inputs the mirror with all three
+    bf16 terms of P and of the entering state holds to the port's plain
+    version and to the reference's oracle within the card tolerances; with
+    one term of the part under test it misses them several times over,
+    so the card checks would catch a kernel that drops a term."""
+    q, k, v, f, i, st, chunk, nz = cancel_inputs(part)
+    want = ref.mlstm_scan_state_ref(q, k, v, f, i, chunk=chunk, normalize=nz,
+                                    initial_state=st)
+    three = chunked_passes(q, k, v, f, i, chunk=chunk, normalize=nz,
+                           initial_state=st)[:2]
+    one = chunked_passes(q, k, v, f, i, chunk=chunk, normalize=nz,
+                         initial_state=st, terms=1)[:2]
+    assert err_over_limit(three, want) <= 1.0
+    assert err_over_limit(one, want) > 4.0
+    j = lambda x: None if x is None else jnp.swapaxes(
+        jnp.asarray(x.float().numpy()), 1, 2)
+    jout, _ = JS.gated_linear_attention(
+        j(q), j(k), j(v), j(f), j(i), chunk=chunk, normalize=nz,
+        initial_state=None if st is None else
+        {n_: jnp.asarray(t.numpy()) for n_, t in st.items()})
+    close(three[0], jnp.swapaxes(jout, 1, 2), rtol=2.0 ** -7,
+          atol=2e-5 * max(1.0, float(jnp.abs(jout).max())))
+
+
+def test_three_bf16_terms_hold_an_f32_value():
+    """The split the chunked route multiplies by: hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid) hold every f32 x exactly (8
+    bits of the significand a term), where one term keeps 2**-9 of it."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor((rng.standard_normal(100_000)
+                         * 10.0 ** rng.integers(-20, 20, 100_000))
+                        .astype(np.float32))
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, x.double())
+    assert float(((hi.double() - x.double()).abs() / x.double().abs())
+                 .max()) > 2.0 ** -10
+
+
+@pytest.mark.parametrize("dtype,dk,dv,chunk,describable,want", [
+    (torch.bfloat16, 384, 384, 256, True, "wgmma"),    # xLSTM-125M's heads
+    (torch.bfloat16, 16, 64, 256, True, "wgmma"),      # Hymba-1.5B's heads
+    (torch.bfloat16, 512, 64, 128, True, "wgmma"),
+    (torch.bfloat16, 72, 320, 64, True, "wgmma"),
+    (torch.float32, 384, 384, 256, True, "simple"),
+    (torch.float32, 16, 64, 256, True, "simple"),
+    (torch.bfloat16, 20, 70, 64, True, "simple"),
+    (torch.bfloat16, 1, 1, 256, True, "simple"),
+    (torch.bfloat16, 16, 65, 128, True, "simple"),
+    (torch.bfloat16, 16, 64, 8, True, "simple"),
+    (torch.bfloat16, 16, 64, 96, True, "simple"),
+    (torch.bfloat16, 384, 384, 256, False, "simple")])
+def test_route(dtype, dk, dv, chunk, describable, want):
+    """Each serve shape in bf16 takes the chunked route; f32, dk or dv
+    off a multiple of 8, a chunk off a multiple of 64 and operands a TMA
+    map cannot describe keep the one-block kernel."""
+    assert kmlstm.route(dtype, dk, dv, chunk, describable) == want
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
+def test_serve_views_are_tma_describable(arch):
+    """The blocks hand the scan (B, S, H, d) tensors as transposed views:
+    xLSTM's q, k, v from reshaped projections, Hymba's C and B sliced
+    from one (B, S, 2, H, N) projection; in bf16 each is describable in
+    place, so the serve path takes the chunked route without a copy."""
+    from repro_torch.kernels import tma
+    cfg = get_config(arch)
+    B, S_, H = 2, 64, cfg.num_heads
+    t = lambda x: x.transpose(1, 2)
+    bf = torch.bfloat16
+    if arch == "xlstm-125m":
+        dh = cfg.ssm_expand * cfg.d_model // H
+        q = torch.zeros(B, S_, H * dh, dtype=bf).reshape(B, S_, H, dh)
+        views = [q, q.clone(), q.clone()]
+        dk = dv = dh
+    else:
+        N, dv = cfg.ssm_state, cfg.d_model // H
+        bc = torch.zeros(B, S_, 2 * H * N, dtype=bf).reshape(B, S_, 2, H, N)
+        views = [bc[:, :, 1], bc[:, :, 0],
+                 torch.zeros(B, S_, H * dv, dtype=bf).reshape(B, S_, H, dv)]
+        dk = N
+    assert all(tma.tma_describable(t(x)) for x in views)
+    assert kmlstm.route(bf, dk, dv, cfg.chunk_size, True) == "wgmma"
+
+
+def test_workspace():
+    """The chunked route's scratch at the two serve shapes, one f32 state
+    a chunk: xLSTM-125M's chunk updates (then entering states) are 16 x 8
+    x 384 x 384 f32 (75.5 MB), Hymba-1.5B's 100 x 8 x 16 x 64; the rest
+    holds n's, the four gate planes and 2 x BH x NC + BH chunk scalars.
+    About 4 (dk dv + dk) / chunk + 16 bytes a token and head."""
+    nf = kmlstm.workspace(4, 4, 2048, 384, 384, 256)
+    assert nf == (16 * 8 * 384 * 384 + 16 * 8 * 384 + 4 * 16 * 8 * 256
+                  + 16 * 9 + 16 * 8)
+    assert 4 * 16 * 8 * 384 * 384 == 75_497_472
+    assert 75e6 < 4 * nf < 77e6
+    nf = kmlstm.workspace(4, 25, 2048, 16, 64, 256)
+    assert nf == (100 * 8 * 16 * 64 + 100 * 8 * 16 + 4 * 100 * 2048
+                  + 100 * 9 + 100 * 8)
+    assert kmlstm.workspace(1, 1, 300, 16, 8, 128) == (
+        3 * 16 * 8 + 3 * 16 + 4 * 384 + 4 + 3)
+    per = lambda dk, dv, c: 4 * (dk * dv + dk) / c + 16
+    for shape, c in (((4, 4, 2048, 384, 384), 256), ((1, 4, 32768, 384, 384),
+                                                      256)):
+        B, H, S_, dk, dv = shape
+        assert 4 * kmlstm.workspace(*shape, c) == pytest.approx(
+            B * H * S_ * per(dk, dv, c), rel=1e-3)

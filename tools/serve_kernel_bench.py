@@ -1,7 +1,8 @@
-"""Time the serve path's ``flash_attention``, ``rmsnorm`` and ``swiglu``
-kernels, for a before and after comparison on one card.
+"""Time the serve path's ``flash_attention``, ``rmsnorm``, ``swiglu`` and
+``mlstm_scan`` kernels, for a before and after comparison on one card.
 
     python3 tools/serve_kernel_bench.py [--root DIR] [--outputs DIR] [--sweep]
+    python3 tools/serve_kernel_bench.py [--root DIR] --scan-accuracy
 
 Puts ``DIR/src`` (default: this checkout's) first on the path, so the
 kernels are that tree's own, and runs this checkout's ``chip_smoke.py``
@@ -13,16 +14,24 @@ inputs beside the same library calls and bounds. It builds the tree's
 kernels, then prints the routes the tree's wrappers take, phase 6's serve
 lines (``flash_attention`` at SmolLM-360M's and Hymba-1.5B's prefill,
 ``rmsnorm`` at prefill and at a decode step, ``swiglu`` at both models'
-prefill and decode step), and the device time of one call of each shape
-split by kernel name (``torch.profiler``, CUDA activity, 10 calls). With
-``--outputs DIR`` it saves this tree's outputs of the three kernels on
-seeded inputs there and says, kernel by kernel, whether they are
-``torch.equal`` to those every other tree saved in ``DIR`` (keep DIR on
-the card's machine, under ``build/``: the outputs take about 200 MB a
-tree). ``--sweep`` times every ``swiglu`` kernel that takes the operands
+prefill and decode step, ``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's
+prefill in bf16 with the route it takes, through ``scan_timing``), and
+the device time of one call of each shape split by kernel name
+(``torch.profiler``, CUDA activity, 10 calls). With ``--outputs DIR`` it
+saves this tree's outputs of the four kernels on seeded inputs there
+(``mlstm_scan`` in f32, its one-block kernel, and in bf16, output and
+final state, at the serve shapes with one sequence) and says, kernel by
+kernel, whether they are ``torch.equal`` to those every other tree saved
+in ``DIR`` (keep DIR on the card's machine, under ``build/``: the outputs
+take about 300 MB a tree). ``--sweep`` times every ``swiglu`` kernel that takes the operands
 at both models' D and F over M from 1 to 128 (this tree only; it picks
-the rows where the decode route ends). The last line is one JSON object
-with all of it. Needs one CUDA card; exits non-zero without it.
+the rows where the decode route ends). ``--scan-accuracy`` does none of
+that: it holds the tree's ``mlstm_scan`` to its plain version over
+phase 21's cases (``chip_smoke.scan_comparisons``, with the inputs that
+need all three bf16 terms of an f32 operand) and prints each case's
+route and largest err / limit, failing none, so a variant source can be
+read against the tolerances. The last line is one JSON object with all
+of it. Needs one CUDA card; exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--outputs", type=Path, default=None)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--scan-accuracy", action="store_true")
     args = ap.parse_args()
     root = args.root.resolve()
     spec = importlib.util.spec_from_file_location("chip_smoke_here",
@@ -72,10 +82,20 @@ def main() -> int:
     print(f"[bench] tree {root}; bf16 hd 64 route {route}; swiglu routes "
           f"{mlp_routes}; ptxas: "
           + "; ".join(e for e in cs.ptxas_entries(build.build_log())
-                      if "fa_" in e or "rmsnorm" in e or "swiglu" in e),
+                      if any(n in e for n in ("fa_", "rmsnorm", "swiglu",
+                                              "mlstm_scan"))),
           flush=True)
+    if args.scan_accuracy:
+        g = torch.Generator(device="cuda").manual_seed(22)
+        ratios = {}
+        for case, _, got, route, want in cs.scan_comparisons(g):
+            ratios[str(case)] = r = cs.scan_ratio(case, got, want)
+            print(f"[bench] mlstm_scan {case}, route {route}: err / limit "
+                  f"{r:.4f}", flush=True)
+        print(json.dumps({"root": str(root), "scan_err_over_limit": ratios}))
+        return 0
     timed = {}
-    for line in cs.serve_timing(timed):
+    for line in cs.serve_timing(timed) + cs.scan_timing(timed):
         print(f"[bench] {line}", flush=True)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
            "route": route, "swiglu_routes": mlp_routes, **timed}
@@ -100,6 +120,13 @@ def main() -> int:
         splits[f"swiglu {name}"] = cs.launch_split(
             lambda: ops.swiglu(x, wg, wu))
         saved[f"swiglu {name}"] = ops.swiglu(x, wg, wu).cpu()
+    for arch, (_, H, S, dk, dv, nz) in cs.SCAN_SHAPES.items():
+        for dtype in (torch.float32, bf):
+            q, k, v, f, i, _ = cs.scan_inputs(1, H, S, dk, dv, nz, dtype, g)
+            y, state = ops.mlstm_scan(q, k, v, f, i, chunk=cs.SCAN_CHUNK,
+                                      normalize=nz)
+            for part, t in (("out", y), *state.items()):
+                saved[f"mlstm_scan {str(dtype)[6:]} {arch} {part}"] = t.cpu()
     for name, split in splits.items():
         print(f"[bench] {name}, one call: {cs.split_text(split)}", flush=True)
     out["split"] = splits
@@ -113,7 +140,9 @@ def main() -> int:
                 equal[other.stem] = {
                     kernel: all(torch.equal(saved[n], theirs[n])
                                 for n in saved if n.startswith(kernel))
-                    for kernel in ("flash_attention", "rmsnorm", "swiglu")}
+                    for kernel in ("flash_attention", "rmsnorm", "swiglu",
+                                   "mlstm_scan float32",
+                                   "mlstm_scan bfloat16")}
         torch.save(saved, args.outputs / f"{tag}.pt")
         out["outputs_equal_to"] = equal
         print(f"[bench] outputs torch.equal to the saved trees': {equal}",
