@@ -25,19 +25,25 @@ plain PyTorch version. Phases, one line each:
    decode step, ``swiglu`` at SmolLM-360M's and Hymba-1.5B's prefill and
    decode step beside ``x @ w_gate`` and both products in one call, with
    the route each shape takes, ``fedavg_agg`` over one host round's 8
-   leaves in one launch beside one launch a leaf and 8 ``torch.mv``), and
-   the two top-k kernels' device time split by launch group
-   (``torch.profiler``);
-7. ``segmented_topk`` and ``mkp_utility`` against their plain versions on
-   the card (ties, -inf padding, all-equal rows, NaN and +-inf, k up to
-   C, one row over many blocks, ragged n and m): exact;
+   leaves in one launch beside one launch a leaf and 8 ``torch.mv``,
+   ``mkp_greedy`` on stage 2's first MKP beside the per-pick
+   loop over ``mkp_utility`` in a graph, one launch a solve), and the two
+   top-k kernels' and the int8 aggregate's device time split by launch
+   group (``torch.profiler``; the int8 aggregate one launch a call);
+7. ``segmented_topk``, ``mkp_utility`` and ``mkp_greedy`` against their
+   plain versions on the card (ties, -inf padding, all-equal rows, NaN
+   and +-inf, k up to C, one row over many blocks, ragged n and m; the
+   greedy over one block, clusters and rows past the cluster's shared
+   memory): exact;
 8. the fleet intake: four tasks through
    ``FLServiceProvider.select_pools_batch`` over 1,000,000 clients in 8
    shards, routed through the per-shard frontier; picks equal the flat
    host greedy before and after 5,000 churn events, each timed beside
    the frontier route;
 9. stage 2 on the card: ``generate_subsets(backend="device")`` over task
-   0's pool equals the same call on the CPU (the plain version);
+   0's pool equals the same call on the CPU (the plain version), one
+   ``mkp_greedy`` launch a device MKP solve and no ``mkp_utility``, its
+   wall per schedule;
 10. the intake below the fleet route: the batched stage-1 greedy over
     8 tasks and 100,000 clients, numpy (the default) against the device
     backend, timed, masks compared;
@@ -529,6 +535,24 @@ def launch_split(fn, calls: int = 10) -> dict:
             for name, (ms, n) in times.items()}
 
 
+def one_launch(fn, what: str) -> dict:
+    """``launch_split`` of ``fn``, checked to name one kernel at no more
+    than one launch a call (a memset beside it is no kernel launch).
+    CUPTI can drop kernel records from a window (seen: 9 of 10 recorded,
+    and once none), so a split without a kernel is taken again, up to
+    three times."""
+    is_kernel = lambda name: not name.startswith(("Memset", "Memcpy"))
+    for _ in range(3):
+        split = launch_split(fn)
+        kernels = {k: s for k, s in split.items() if is_kernel(k)}
+        if kernels:
+            break
+    check(len(kernels) == 1 and all(s["launches"] <= 1
+                                    for s in kernels.values()),
+          f"{what} is one launch a call: {split_text(split)}")
+    return split
+
+
 def split_text(split: dict) -> str:
     return ", ".join(f"{name} x{s['launches']:g} {s['ms']:.4f} ms"
                      for name, s in split.items())
@@ -586,6 +610,7 @@ def timing(fleet) -> dict:
                  f"{plain_ms:.4f} ms, torch.mv(w, s) (penalty only) "
                  f"{mv_ms:.4f} ms; bound {out['mkp_utility']['bound_ms']:.6f} ms "
                  f"({nbytes} B)")
+    lines += greedy_timing(fleet, out)
     lines += compression_timing(u, w, out)
     lines += serve_timing(out)
     lines.append("swiglu routes: " + ", ".join(
@@ -600,6 +625,58 @@ def timing(fleet) -> dict:
              "keeps f32 accuracy): "
              + " | ".join(lines))
     return out
+
+
+def greedy_timing(fleet, out) -> list[str]:
+    """``mkp_greedy``, one launch a solve, on stage 2's first MKP over task
+    0's pool (n about 3,846, m = 10, 13 picks), beside its plain version
+    and the route it replaced: :func:`per_pick_loop` over ``mkp_utility``
+    (about 9 launches a pick), each in a CUDA graph, so the loop's
+    launches cost no host time: the launch-free yardstick. No one PyTorch call computes
+    the greedy (library null). The bound counts this solve's picks (each
+    a pass over the pool) and its bytes (v, w and cap read once, the mask
+    and used written once). Fills ``out`` and returns the phase-6
+    line."""
+    from repro_torch.kernels import ops, ref
+    v, wt, cap, _ = fleet["mkp_args"]
+    n, m = wt.shape
+    picks = SUBSET_N + SUBSET_DELTA
+    sel, _ = ops.mkp_greedy(v, wt, cap, picks)
+    made = int(sel.sum())
+    scored = min(picks, made + 1)           # a pick that is not finite ends it
+    ms = time_ms(lambda: ops.mkp_greedy(v, wt, cap, picks))
+    plain_ms = time_ms(lambda: ref.mkp_greedy_ref(v, wt, cap, picks))
+    loop_ms = time_ms(lambda: per_pick_loop(ops, v, wt, cap, picks))
+    one_launch(lambda: ops.mkp_greedy(v, wt, cap, picks), "mkp_greedy")
+    nbytes = 4 * (n + n * m + m) + n + 4 * m
+    t = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+         "per_pick_loop_ms": loop_ms, "picks": made, "ms_a_pick": ms / scored,
+         **bound(nbytes, scored * (2 * n * m + n + 4 * m))}
+    out["mkp_greedy"] = t
+    return [f"mkp_greedy n={n} m={m} max {picks} picks ({made} made): kernel "
+            f"{ms:.4f} ms ({t['ms_a_pick'] * 1e3:.2f} us a pick, one launch), "
+            f"plain {plain_ms:.4f} ms, the per-pick loop over mkp_utility in "
+            f"a graph {loop_ms:.4f} ms; bound {t['bound_ms']:.6f} ms "
+            f"({nbytes} B, {t['bound_by']})"]
+
+
+def per_pick_loop(ops, v, w, cap, picks):
+    """Stage 2's greedy as the engine ran it before ``mkp_greedy``: a
+    launch of ``ops.mkp_utility`` and a few small PyTorch ops a pick, no
+    host sync (so a CUDA graph captures it). ``ops`` is a tree's
+    ``repro_torch.kernels.ops``: ``tools/stage2_bench.py`` runs it on a
+    parent tree too."""
+    n, m = w.shape
+    used = torch.zeros(m, dtype=torch.float32, device=w.device)
+    in_sel = torch.zeros(n, dtype=torch.bool, device=w.device)
+    zero = torch.zeros(m, dtype=torch.float32, device=w.device)
+    for _ in range(picks):
+        util = ops.mkp_utility(v, w, cap - used, ~in_sel)
+        j = torch.argmax(util).view(1)          # first maximum
+        ok = torch.isfinite(util[j])
+        in_sel[j] = in_sel[j] | ok
+        used = used + torch.where(ok, w[j][0], zero)
+    return in_sel, used
 
 
 def agg_timing(u, w, mv_ms, out, g) -> list[str]:
@@ -681,6 +758,9 @@ def compression_timing(u, w, out) -> list[str]:
         if name == "topk_sparsify":
             t["split"] = launch_split(fn)
             lib_s += "; one call by launch group: " + split_text(t["split"])
+        if name == "fedavg_agg_quality_i8":
+            t["split"] = one_launch(fn, name)
+            lib_s += "; one call: " + split_text(t["split"])
         lines.append(f"{name} {shape}: kernel {t['ms']:.4f} ms, plain "
                      f"{t['plain_ms']:.4f} ms{lib_s}; bound "
                      f"{t['bound_ms']:.4f} ms ({nbytes} B)")
@@ -1173,6 +1253,7 @@ def new_kernels_vs_plain() -> dict:
                 fin = torch.isfinite(exp)
                 err["mkp_utility"] = float((got[fin] - exp[fin]).abs().max())
             n_mkp += 1
+    n_greedy, clusters = greedy_vs_plain(g, err)
     phase(7, f"segmented_topk vs plain: {n_topk} cases (S x C in 8x131072 "
              f"with k in 1,32,2049,4096,131072 and 3x1000 with k=7; normal, "
              f"heavy ties, -inf padded with fewer finite than k, all equal, "
@@ -1180,8 +1261,84 @@ def new_kernels_vs_plain() -> dict:
              f"4096,2^19+1, normal, all equal, NaN) equal in values and "
              f"lanes but at -inf slots, repeat bit-identical; mkp_utility "
              f"vs plain: {n_mkp} cases (n in 1,19,3846,100003; m in "
-             f"1,10,64) bit-equal")
+             f"1,10,64) bit-equal; mkp_greedy vs plain: {n_greedy} cases "
+             f"(n from 1 to 100003 on the clusters greedy_blocks takes, "
+             f"blocks {clusters}, rows past 8 blocks' shared memory from "
+             f"50000 x 10; m in 1,5,7,10,17,64,300,2500; ties, all fit, none "
+             f"fit, NaN and +inf utilities) bit-equal in mask and used, "
+             f"repeat bit-identical")
     return err
+
+
+# (n, m, picks, kind): clusters of 1, 2, 3, 5 and 8 blocks, as
+# ``greedy_blocks`` picks them from n (a block per 512 items), stage 2's
+# shape (8 blocks), m past the register columns (17), rows past 8 blocks'
+# shared memory (50,000 x 10 and up: read from device memory each pick)
+# and knapsack terms past shared memory (m = 2,500, 3 blocks)
+GREEDY_CASES = [(1, 1, None, "random"), (1, 5, 3, "nofit"),
+                (19, 10, None, "all"), (19, 10, None, "ties"),
+                (200, 7, 30, "nan"), (200, 7, 30, "inf"),
+                (200, 10, 250, "all"), (700, 10, 13, "random"),
+                (1100, 10, 13, "ties"), (2500, 10, 13, "random"),
+                (3846, 10, 13, "random"), (3846, 10, 13, "ties"),
+                (3846, 17, 13, "random"), (15_000, 10, 13, "random"),
+                (50_000, 10, 13, "random"), (100_003, 64, 13, "random"),
+                (5000, 300, 13, "random"), (50, 2500, 5, "all")]
+GREEDY_CLUSTERS = {1, 2, 3, 5, 8}
+
+
+def greedy_instance(n, m, kind, g):
+    """An MKP instance on the card: integer weights, capacities at 0.4 of
+    the column sums; ``ties``: values the weights' sums and capacity 64
+    for every knapsack (the first utilities tie exactly); ``all``: every
+    item fits; ``nofit``: none does; ``nan`` / ``inf``: one fitting
+    item's value is NaN / +inf."""
+    w = torch.randint(0, 30, (n, m), generator=g, device="cuda").float()
+    v = w.sum(1) + 5 * torch.rand(n, generator=g, device="cuda")
+    cap = 0.4 * w.sum(0) + 1
+    j = n // 3
+    if kind == "ties":
+        v, cap = w.sum(1), torch.full((m,), 64.0, device="cuda")
+    elif kind == "all":
+        cap = w.sum(0) + 1
+    elif kind == "nofit":
+        w += 1
+        cap = torch.full((m,), 0.5, device="cuda")
+    elif kind in ("nan", "inf"):
+        w[j] = 1
+        v[j] = float(kind)
+    return v, w, cap
+
+
+def greedy_vs_plain(g, err) -> tuple[int, list]:
+    """``mkp_greedy`` against its plain version: mask and used bit-equal.
+    Fills ``err["mkp_greedy"]`` at stage 2's shape and returns the count
+    and the cluster each case took."""
+    from repro_torch.kernels import mkp_utility as kmkp
+    from repro_torch.kernels import ref
+    clusters = []
+    for n, m, picks, kind in GREEDY_CASES:
+        v, w, cap = greedy_instance(n, m, kind, g)
+        got = kmkp.mkp_greedy(v, w, cap, picks)
+        exp = ref.mkp_greedy_ref(v, w, cap, picks)
+        torch.cuda.synchronize()
+        clusters.append(kmkp.greedy_blocks(n, m))
+        what = (f"mkp_greedy n={n} m={m} picks={picks} {kind} "
+                f"({clusters[-1]} blocks)")
+        check(torch.equal(got[0], exp[0]) and torch.equal(
+            got[1].view(torch.int32), exp[1].view(torch.int32)),
+            f"{what}: mask and used bit-equal to the plain version")
+        if kind in ("nan", "inf", "nofit"):
+            check(not bool(got[0].any()), f"{what}: stops at the first pick")
+        if (n, m, kind) == (3846, CLASSES, "random"):
+            err["mkp_greedy"] = float((got[1] - exp[1]).abs().max())
+            again = kmkp.mkp_greedy(v, w, cap, picks)
+            check(torch.equal(got[0], again[0]) and torch.equal(
+                got[1], again[1]), "mkp_greedy repeats bit for bit")
+    check(GREEDY_CLUSTERS <= set(clusters),
+          f"the cases reach clusters of {sorted(GREEDY_CLUSTERS)} blocks: "
+          f"{sorted(set(clusters))}")
+    return len(GREEDY_CASES), clusters
 
 
 def fleet_pool():
@@ -1332,18 +1489,40 @@ def fleet_intake(fleet) -> tuple[int, tuple]:
     return launches, task0
 
 
-def stage2_on_card(arrays) -> int:
-    """``arrays``: task 0's pool as (ids, histograms)."""
-    from repro_torch.core import fairness, scheduling
+def stage2_on_card(arrays) -> dict:
+    """``arrays``: task 0's pool as (ids, histograms). Stage 2 through
+    ``generate_subsets(backend="device")``: one ``mkp_greedy`` launch for
+    each MKP solve that reaches the device backend (above the exact
+    solver's threshold), none of ``mkp_utility``. Returns both kernels'
+    launches in that run and its walls."""
+    from repro_torch.core import engine, fairness, scheduling
     from repro_torch.kernels import ops
-    ops.LAUNCHES["mkp_utility"] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dev = scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA,
-                                      backend="device")
-    torch.cuda.synchronize()
-    dev_s = time.perf_counter() - t0
-    launches = ops.LAUNCHES["mkp_utility"]
+    solve, solves = engine.solve_mkp_greedy_device, []
+
+    def counted(*args, **kwargs):
+        solves.append(kwargs.get("device"))
+        return solve(*args, **kwargs)
+
+    engine.solve_mkp_greedy_device = counted
+    try:
+        ops.LAUNCHES["mkp_greedy"] = ops.LAUNCHES["mkp_utility"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA,
+                                          backend="device")
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        greedy, util = ops.LAUNCHES["mkp_greedy"], ops.LAUNCHES["mkp_utility"]
+        n_dev = len(solves)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA,
+                                        backend="device")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        engine.solve_mkp_greedy_device = solve
     t0 = time.perf_counter()
     cpu = scheduling.generate_subsets(arrays, SUBSET_N, SUBSET_DELTA,
                                       backend="device", device="cpu")
@@ -1354,19 +1533,24 @@ def stage2_on_card(arrays) -> int:
     check(dev.subsets == cpu.subsets and dev.counts == cpu.counts
           and np.array_equal(dev.nids, cpu.nids),
           "device schedule equals the CPU plain schedule")
-    check(launches > 0, "stage 2 launched mkp_utility")
+    check(greedy == n_dev > 0, f"stage 2 launched mkp_greedy once a device "
+          f"solve: {greedy} launches, {n_dev} solves")
+    check(util == 0, f"stage 2 launched no mkp_utility ({util})")
     rep = fairness.fairness_report(dev, sorted(arrays[0].tolist()), x_star=3)
     check(rep["coverage"] and rep["bounded"],
           "the schedule covers the pool within x*")
     phase(9, f"stage 2 on the card: generate_subsets(n={SUBSET_N}, "
              f"delta={SUBSET_DELTA}, backend='device') over task 0's "
              f"{arrays[0].size} clients: {len(dev.subsets)} subsets in "
-             f"{dev_s:.2f} s wall (CPU plain version {cpu_s:.2f} s; the "
-             f"default numpy greedy + local search {numpy_s:.2f} s), equal "
-             f"to the CPU schedule, coverage and x* bound hold; mkp_utility "
-             f"launches {launches} ({dev_s / launches * 1e6:.0f} us of wall "
-             f"a launch)")
-    return launches
+             f"{dev_s:.3f} s wall, then {walls[0]:.3f} and {walls[1]:.3f} s "
+             f"(CPU plain version {cpu_s:.2f} s; the default numpy greedy + "
+             f"local search {numpy_s:.2f} s), equal to the CPU schedule, "
+             f"coverage and x* bound hold; {n_dev} MKP solves on the device "
+             f"backend, mkp_greedy launches {greedy} (one a solve, "
+             f"{dev_s / greedy * 1e6:.0f} us of wall a solve), mkp_utility "
+             f"launches {util}")
+    return {"mkp_greedy": greedy, "mkp_utility": util,
+            "stage2_wall_s": [dev_s, *walls]}
 
 
 def median_wall_ms(fn, reps: int = 7) -> float:
@@ -2322,9 +2506,16 @@ def main() -> int:
         record("segmented_topk", csrc + "segmented_topk.cu",
                "src/repro/kernels/segmented_topk.py:62", topk_launches,
                errs["segmented_topk"], t["segmented_topk"]),
+        # stage 2 runs mkp_greedy in its place: 0 launches on the path
         record("mkp_utility", csrc + "mkp_utility.cu",
-               "src/repro/kernels/mkp_utility.py:42", mkp_launches,
-               errs["mkp_utility"], t["mkp_utility"])]
+               "src/repro/kernels/mkp_utility.py:42",
+               mkp_launches["mkp_utility"], errs["mkp_utility"],
+               {**t["mkp_utility"], "path_counterpart": "mkp_greedy"}),
+        record("mkp_greedy", csrc + "mkp_utility.cu",
+               "src/repro/kernels/mkp_utility.py:42",
+               mkp_launches["mkp_greedy"], errs["mkp_greedy"],
+               {**t["mkp_greedy"],
+                "stage2_wall_s": mkp_launches["stage2_wall_s"]})]
     for name, source, line in (
             ("topk_sparsify", "segmented_topk.cu", 81),
             ("quantize_i8", "quantize_i8.cu", 117),

@@ -16,10 +16,9 @@ This module is the array-native hot path behind the control plane:
 - ``mkp_pseudo_utility``     — the Toyoda scarcity-weighted scoring of
   *all* MKP candidates at once (shared with ``mkp.solve_mkp_greedy`` so
   the two paths cannot drift).
-- ``solve_mkp_greedy_device`` — the MKP greedy loop on the device, its
-  per-iteration ``(n_items, n_knapsacks)`` utility update through
-  ``kernels.ops.mkp_utility`` (the CUDA kernel; its plain version on the
-  CPU).
+- ``solve_mkp_greedy_device`` — the whole MKP greedy of one solve on the
+  device, one launch of ``kernels.ops.mkp_greedy`` (the CUDA kernel; its
+  plain version on the CPU).
 
 Data flow: callers hold a ``ClientPoolState``; every function here takes
 plain arrays (columns of that state) and returns arrays/masks, and never
@@ -27,10 +26,13 @@ materializes ``ClientProfile`` objects.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import mkp_utility as _mkp_kernel
 from ..kernels import ops
 from .criteria import overall_score
 
@@ -350,36 +352,57 @@ def mkp_pseudo_utility(values: np.ndarray, weights: np.ndarray,
     return np.where(fits, util, -np.inf), fits
 
 
+def _pinned(key: str, nbytes: int) -> torch.Tensor:
+    """A page-locked host buffer of at least ``nbytes``, kept for the next
+    solve: each solve waits for its result, which the stream copies after
+    its input, so a buffer is free again when the solve returns."""
+    buf = _PINNED.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8,
+                          pin_memory=True)
+        _PINNED[key] = buf
+    return buf
+
+
+_PINNED: dict[str, torch.Tensor] = {}
+_PINNED_LOCK = threading.Lock()      # one solve at a time uses the buffers
+
+
 def solve_mkp_greedy_device(values, weights, capacities,
                             max_size: int | None = None, device=None
                             ) -> tuple[np.ndarray, np.ndarray]:
     """Toyoda greedy on the device (``device``, None -> ``cuda``), in
-    f32 as the reference's ``solve_mkp_greedy_jax``: each iteration
-    rescores every item through ``mkp_utility`` and takes the first
-    best one.
-
-    The reference's ``lax.while_loop`` stops at the first iteration
-    whose best utility is ``-inf`` or after ``max_size`` picks; such an
-    iteration changes nothing, and so does every one after it, so this
-    loop runs exactly ``max_size`` iterations with no host sync inside
-    and copies the state to the host once at the end.
+    f32 as the reference's ``solve_mkp_greedy_jax``: each pick rescores
+    every item and takes the first best one, through
+    ``kernels.ops.mkp_greedy``. On the card that is one launch a solve:
+    v, w and the capacities go over in one copy from a page-locked
+    buffer, and the mask and ``used`` come back in one copy. On the CPU
+    it is the plain version (``kernels.ref.mkp_greedy_ref``).
 
     Returns ``(selection_mask (n,), used (m,))``. Matches the greedy
     phase of ``mkp.solve_mkp_greedy`` (``local_search=False``) up to
     float32 utility ties.
     """
     dev = resolve_device(device)
-    v = torch.from_numpy(np.asarray(values, np.float32)).to(dev)
-    w = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(dev)
-    cap = torch.from_numpy(np.asarray(capacities, np.float32)).to(dev)
-    n, m = w.shape
-    used = torch.zeros(m, dtype=torch.float32, device=dev)
-    in_sel = torch.zeros(n, dtype=torch.bool, device=dev)
-    zero = torch.zeros(m, dtype=torch.float32, device=dev)
-    for _ in range(n if max_size is None else int(max_size)):
-        util = ops.mkp_utility(v, w, cap - used, ~in_sel)
-        j = torch.argmax(util).view(1)          # first maximum, as jnp
-        ok = torch.isfinite(util[j])            # (1,), stays on the device
-        in_sel[j] = in_sel[j] | ok
-        used = used + torch.where(ok, w[j][0], zero)
-    return in_sel.cpu().numpy(), used.cpu().numpy()
+    n, m = np.shape(weights)
+    if dev.type == "cpu":
+        v, wt, cap = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                      for a in (values, weights, capacities))
+        in_sel, used = ops.mkp_greedy(v, wt, cap, max_size)
+        return in_sel.numpy(), used.numpy()
+    size = n + n * m + m
+    with _PINNED_LOCK:
+        host = _pinned("in", 4 * size)[:4 * size].view(torch.float32)
+        flat = host.numpy()
+        flat[:n] = values
+        flat[n:n + n * m].reshape(n, m)[...] = weights
+        flat[n + n * m:] = capacities
+        buf = host.to(dev, non_blocking=True)
+        in_sel, used = ops.mkp_greedy(buf[:n], buf[n:n + n * m].view(n, m),
+                                      buf[n + n * m:], max_size)
+        out = _pinned("out", 4 * m + n)[:4 * m + n]
+        out.copy_(_mkp_kernel.packed(used), non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        out = out.numpy()
+        return (out[4 * m:].view(np.bool_).copy(),
+                out[:4 * m].view(np.float32).copy())

@@ -12,7 +12,7 @@ They replace the JAX package's Pallas kernels in
   versions;
 - ``fedavg_agg_quality_i8`` (``csrc/fedavg_agg_quality.cu``): the fused
   aggregation + quality pass reading int8 payloads and dequantizing in
-  registers.
+  registers, 16 columns a thread, in one launch.
 
 See the sources for their bounds and designs. Built with the port's
 other kernels at first use (:mod:`repro_torch.kernels.build`); nothing
@@ -21,18 +21,22 @@ is built or loaded at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
 from . import segmented_topk as _topk
-from .fedavg_agg import MAX_K, _check_max_k, num_blocks
+from .fedavg_agg import MAX_K, _check_max_k
 
 _QUANT_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_longlong,
                                             ctypes.c_int, ctypes.c_longlong)
-_AGG_I8_ARGTYPES = (ctypes.c_void_p,) * 8 + (
+_AGG_I8_ARGTYPES = (ctypes.c_void_p,) * 6 + (
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_int)
+I8_COLS = 16             # columns a thread of the int8 aggregate owns
+I8_THREADS = 256         # threads per block, as in the source
+I8_MAX_BLOCKS = 288      # grid cap (grid-stride past it), as in the source
 
 
 def _check_2d(name: str, x: torch.Tensor, dtype: torch.dtype) -> None:
@@ -114,16 +118,35 @@ def dequantize_i8(values: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def i8_blocks(P: int) -> int:
+    """Grid of the int8 aggregate: a block per 256 groups of 16 columns,
+    capped at ``I8_MAX_BLOCKS`` (the source launches no more blocks than
+    the card holds at once, fewer where that is less)."""
+    groups = -(-P // I8_COLS)
+    return max(1, min(-(-groups // I8_THREADS), I8_MAX_BLOCKS))
+
+
+@functools.cache
+def _check_i8_blocks() -> None:
+    fn = build.library().fedavg_agg_quality_i8_max_blocks
+    fn.restype = ctypes.c_int
+    if fn() != I8_MAX_BLOCKS:
+        raise RuntimeError("kernel and binding disagree on the grid cap")
+
+
 def fedavg_agg_quality_i8(values: torch.Tensor, scales: torch.Tensor,
                           weights: torch.Tensor, chunk: int = 256):
     """Launch the fused aggregation + quality pass over int8 payloads.
-    values: (K, P) int8, 1 <= K <= ``MAX_K``; scales (K, nc) f32; weights
-    (K,) (cast to f32).
+    values: (K, P) int8, 1 <= K <= ``MAX_K``, P < 2**31 - 16, any
+    alignment; scales (K, nc) f32; weights (K,) (cast to f32). One
+    cooperative launch a call, whose grid barrier is its own, so calls on
+    concurrent streams or graphs share no state.
 
     Returns ``(agg (P,) f32, dots (K,), sq (K,), asq ())`` as
     :func:`repro_torch.kernels.ref.fedavg_agg_quality_i8_ref` defines
-    them, up to f32 summation order. Raises on any input the kernel does
-    not take and on a failed launch.
+    them, up to f32 summation order; agg sums each column's K terms with
+    fmaf in client order. Raises on any input the kernel does not take
+    and on a failed launch.
     """
     _check_2d("fedavg_agg_quality_i8", values, torch.int8)
     chunk = int(chunk)
@@ -132,18 +155,20 @@ def fedavg_agg_quality_i8(values: torch.Tensor, scales: torch.Tensor,
     if K > MAX_K:
         raise ValueError(f"fedavg_agg_quality_i8 takes 1 <= K <= {MAX_K}, "
                          f"got {K}")
+    if P > 2 ** 31 - 1 - I8_COLS:
+        raise ValueError(f"fedavg_agg_quality_i8 takes P < 2**31 - 16, got {P}")
     if weights.shape != (K,) or weights.device != values.device:
         raise ValueError("weights must be (K,) on the values' device")
     w = weights.to(torch.float32).contiguous()
-    nb = num_blocks(P)
+    nb = i8_blocks(P)
     dev = values.device
     agg = torch.empty(P, dtype=torch.float32, device=dev)
     part = torch.empty(nb * (2 * K + 1), dtype=torch.float32, device=dev)
     out = torch.empty(2 * K + 1, dtype=torch.float32, device=dev)
     _check_max_k()
+    _check_i8_blocks()
     build.launch(build.entry("fedavg_agg_quality_i8", _AGG_I8_ARGTYPES), dev,
                  values.data_ptr(), scales.data_ptr(), w.data_ptr(),
-                 agg.data_ptr(), part.data_ptr(), part[nb * K:].data_ptr(),
-                 part[2 * nb * K:].data_ptr(), out.data_ptr(), K, P, chunk,
+                 agg.data_ptr(), part.data_ptr(), out.data_ptr(), K, P, chunk,
                  nc, nb)
     return agg, out[:K], out[K:2 * K], out[2 * K]

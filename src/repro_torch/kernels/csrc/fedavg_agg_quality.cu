@@ -20,20 +20,52 @@
 // From int8 payloads it reads 13.9 MB of values and 0.22 MB of scales and
 // writes 4.3 MB: 5.5 us.
 //
-// Design. The TPU kernel walked the P-blocks in order and carried the sums
-// in its outputs. Here the blocks run in parallel: each thread owns one
-// column at a time, holds that column's K values in registers (so its agg
-// entry is complete and U is not read again), and keeps per-client partial
-// dots and squares in registers across a grid-stride loop. Each block then
-// reduces its threads' partials (warp shuffles, then warps in a fixed
-// order) into partial_dots/partial_sq (nblocks, K) and partial_asq
-// (nblocks,). A second kernel sums the partials in a fixed order. No float
-// atomics, so results repeat bit for bit from run to run. The grid depends
-// on P only. The ragged tail is masked by the column bound. The partials
-// kernel is templated on how a column's K values are loaded (dense f32 or
-// bf16, or int8 times its chunk's scale) and on agg's type.
+// Design of the f32 and bf16 entries. The TPU kernel walked the P-blocks
+// in order and carried the sums in its outputs. Here the blocks run in
+// parallel: each thread owns one column at a time, holds that column's K
+// values in registers (so its agg entry is complete and U is not read
+// again), and keeps per-client partial dots and squares in registers
+// across a grid-stride loop. Each block then reduces its threads' partials
+// (warp shuffles, then warps in a fixed order) into partial_dots/partial_sq
+// (nblocks, K) and partial_asq (nblocks,). A second kernel sums the
+// partials in a fixed order. No float atomics, so results repeat bit for
+// bit from run to run. The grid depends on P only. The ragged tail is
+// masked by the column bound.
+//
+// Design of the int8 entry (agg_quality_i8_kernel): one launch, bound by
+// bytes rather than by instructions. Each thread owns 16 consecutive
+// columns, one 16-byte word of each client row. Rows k >= 1 start off
+// 16-byte alignment (P = 1,070,794 is 10 mod 16), so no 2-D TMA map of V
+// exists (its row stride is not a multiple of 16); a thread reads the two
+// aligned 16-byte words that cover its 16 bytes and funnel-shifts them by
+// the row's offset, which is the same for every thread of the row. The
+// neighbour's second word is the thread's first, so the extra load hits
+// L1 and device memory is read once; this keeps no shared memory and no
+// barrier, where a bulk-copy ring would add both for the same bytes. With
+// K <= 16 the first 12 rows' words stay in registers between the pass
+// that completes agg and the pass that sums dots and squares (rows past
+// them are read again, from L1 or L2): 12 keeps a thread at 128
+// registers without spills, two blocks an SM (16 rows spilled at 128,
+// 13 took more registers and one block an SM). A byte becomes a float
+// by a byte permute into 2^23 + (b + 128) and one exact subtraction, then
+// one __fmul_rn by its chunk's scale, as float(V) * S rounds; where the
+// chunk is a multiple of 16 a thread needs one scale a row, else each
+// column finds its chunk with 32-bit arithmetic. agg[p] is fmaf over k
+// in order, as the f32 entry sums it. The block's partials go to device
+// memory, output-major. The launch is cooperative (its grid no larger
+// than the card holds at once), so after one grid barrier block 0 sums
+// them in a fixed order, every load of a warp in flight at once (the grid
+// is capped at 288 blocks, nine a lane; the kernel strides past it): the
+// outputs repeat bit for bit and no float atomics are used. The barrier
+// is the launch's own, so calls on concurrent streams or CUDA graphs
+// share no state and nothing is zeroed before a launch (a ticket word
+// taken by the last block to finish needs a memset node beside each
+// launch in a graph). A tail whose outputs each waited on the last's
+// loads cost the first version of this kernel most of its fixed time.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -57,17 +89,6 @@ struct DenseLoad {
   long long P;
   __device__ __forceinline__ float operator()(int k, long long c) const {
     return load_f32(u + (long long)k * P + c);
-  }
-};
-
-struct Int8Load {
-  const signed char* v;
-  const float* s;  // (K, nc) chunk scales
-  long long P, nc;
-  int chunk;
-  __device__ __forceinline__ float operator()(int k, long long c) const {
-    return __fmul_rn((float)__ldg(v + (long long)k * P + c),
-                     __ldg(s + (long long)k * nc + c / chunk));
   }
 };
 
@@ -203,6 +224,257 @@ int launch(Load load, const void* w, void* agg, void* part_dots, void* part_sq,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ the int8 entry
+
+constexpr int kI8Cols = 16;       // columns a thread: one 16-byte word of each client row
+constexpr int kI8Hold = 12;       // rows whose words stay in registers between the passes
+constexpr int kI8TailLoads = 9;   // blocks a lane of the last block sums, per output
+constexpr int kI8MaxBlocks = 32 * kI8TailLoads;  // 288: every SM twice over
+
+// The 16 bytes of V at byte `at`: the two aligned 16-byte words that cover
+// them, shifted down by at's offset (the same for every thread of a row).
+// `last` is the aligned word that holds V's last byte; no word past it is
+// read (bytes past a row's P columns are masked by the caller).
+__device__ __forceinline__ uint4 load_cols(const unsigned char* v, long long at, uintptr_t last) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(v + at);
+  const uintptr_t lo = a & ~(uintptr_t)15;
+  const uintptr_t hi = lo + 16 <= last ? lo + 16 : last;
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(lo));
+  const uint4 y = __ldg(reinterpret_cast<const uint4*>(hi));
+  const uint32_t wd[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+  const unsigned off = (unsigned)(a & 15), q = off >> 2, sh = (off & 3) * 8;
+  uint32_t o[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    o[i] = q == 0 ? wd[i] : q == 1 ? wd[i + 1] : q == 2 ? wd[i + 2] : wd[i + 3];
+  return make_uint4(__funnelshift_r(o[0], o[1], sh), __funnelshift_r(o[1], o[2], sh),
+                    __funnelshift_r(o[2], o[3], sh), __funnelshift_r(o[3], o[4], sh));
+}
+
+// Byte b of a word whose bytes were XORed with 0x80 (b + 128, unsigned), as
+// the float of the signed byte: 2^23 + (b + 128) by a byte permute, less
+// 2^23 + 128, exactly.
+__device__ __forceinline__ float i8_value(uint32_t flipped, int b) {
+  return __fsub_rn(__int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u + b)), 8388736.0f);
+}
+
+// The 16 dequantized values of one row's word: float(V) * S, one rounding.
+template <bool ALIGNED>
+__device__ __forceinline__ void dequant16(const uint4 word, const float* sk, int q0,
+                                          const int* qi, float* x) {
+  const uint32_t fw[4] = {word.x ^ 0x80808080u, word.y ^ 0x80808080u, word.z ^ 0x80808080u,
+                          word.w ^ 0x80808080u};
+  float sc = 0.f;
+  if constexpr (ALIGNED) sc = __ldg(sk + q0);
+#pragma unroll
+  for (int i = 0; i < kI8Cols; ++i)
+    x[i] = __fmul_rn(i8_value(fw[i >> 2], i & 3), ALIGNED ? sc : __ldg(sk + qi[i]));
+}
+
+// Pass 2 of one thread's 16 columns, of which the first `lim` are real:
+// each client's dot with the finished agg columns and its square, and agg's
+// square. Inlined, so the arrays stay in registers and lim = 16 folds away.
+template <int KB, int HOLD, bool ALIGNED>
+__device__ __forceinline__ void quality_pass(const unsigned char* v, const float* s, int P, int c0,
+                                             uintptr_t last, int K, int nc, int q0, const int* qi,
+                                             const uint4 (&held)[HOLD > 0 ? HOLD : 1],
+                                             const float (&a)[kI8Cols], const int lim,
+                                             float (&dacc)[KB], float (&qacc)[KB], float& aacc) {
+  float x[kI8Cols];
+#pragma unroll
+  for (int i = 0; i < kI8Cols; ++i)
+    if (i < lim) aacc = fmaf(a[i], a[i], aacc);
+#pragma unroll (KB <= 16 ? KB : 1)
+  for (int k = 0; k < KB; ++k) {
+    if (k < K) {
+      const uint4 word = k < HOLD ? held[k < HOLD ? k : 0]
+                                  : load_cols(v, (long long)k * P + c0, last);
+      dequant16<ALIGNED>(word, s + (long long)k * nc, q0, qi, x);
+#pragma unroll
+      for (int i = 0; i < kI8Cols; ++i) {
+        if (i < lim) {
+          dacc[k] = fmaf(x[i], a[i], dacc[k]);
+          qacc[k] = fmaf(x[i], x[i], qacc[k]);
+        }
+      }
+    }
+  }
+}
+
+// KB: the accumulators' size (K <= KB); ALIGNED: chunk % 16 == 0, so one
+// scale a row serves a thread's 16 columns. Past 16 clients (no path has
+// them) the client loops are not unrolled: the accumulators live in local
+// memory, and the build stays short.
+template <int KB, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+agg_quality_i8_kernel(const unsigned char* __restrict__ v, const float* __restrict__ s,
+                      const float* __restrict__ w, float* __restrict__ agg,
+                      float* __restrict__ part, float* __restrict__ out, int K, int P,
+                      int chunk, int nc) {
+  constexpr int kHold = KB <= 16 ? kI8Hold : 0;
+  __shared__ float s_w[KB];
+  __shared__ float s_red[kWarps][2 * KB + 1];
+  for (int k = threadIdx.x; k < KB; k += kThreads) s_w[k] = k < K ? w[k] : 0.f;
+  __syncthreads();
+  const uintptr_t last = reinterpret_cast<uintptr_t>(v + (long long)K * P - 1) & ~(uintptr_t)15;
+
+  float dacc[KB], qacc[KB];
+#pragma unroll (KB <= 16 ? KB : 1)
+  for (int k = 0; k < KB; ++k) {
+    dacc[k] = 0.f;
+    qacc[k] = 0.f;
+  }
+  float aacc = 0.f;
+
+  const int groups = (P + kI8Cols - 1) / kI8Cols;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < groups; g += gridDim.x * kThreads) {
+    const int c0 = g * kI8Cols;
+    const int nv = min(kI8Cols, P - c0);
+    const int q0 = c0 / chunk;  // 32-bit: column indices fit
+    int qi[ALIGNED ? 1 : kI8Cols];
+    if constexpr (!ALIGNED) {
+      int q = q0;
+      long long next = (long long)(q0 + 1) * chunk;
+#pragma unroll
+      for (int i = 0; i < kI8Cols; ++i) {
+        if (c0 + i >= next) {
+          ++q;
+          next += chunk;
+        }
+        qi[i] = min(q, nc - 1);  // columns past P read a valid scale, then are masked
+      }
+    }
+    // every held row's word in flight before any is used
+    uint4 held[kHold > 0 ? kHold : 1];
+#pragma unroll
+    for (int k = 0; k < kHold; ++k)
+      if (k < K) held[k] = load_cols(v, (long long)k * P + c0, last);
+
+    // pass 1: agg[p] = fmaf over k in order, as the f32 entry sums it
+    float a[kI8Cols], x[kI8Cols];
+#pragma unroll
+    for (int i = 0; i < kI8Cols; ++i) a[i] = 0.f;
+#pragma unroll (KB <= 16 ? KB : 1)
+    for (int k = 0; k < KB; ++k) {
+      if (k < K) {
+        const uint4 word = k < kHold ? held[k < kHold ? k : 0]
+                                     : load_cols(v, (long long)k * P + c0, last);
+        dequant16<ALIGNED>(word, s + (long long)k * nc, q0, qi, x);
+#pragma unroll
+        for (int i = 0; i < kI8Cols; ++i) a[i] = fmaf(s_w[k], x[i], a[i]);
+      }
+    }
+    if (nv == kI8Cols) {
+      float4* dst = reinterpret_cast<float4*>(agg + c0);
+#pragma unroll
+      for (int i = 0; i < kI8Cols / 4; ++i)
+        dst[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+    } else {
+      for (int i = 0; i < nv; ++i) agg[c0 + i] = a[i];
+    }
+
+    // pass 2: dots and squares against the finished agg columns
+    if (nv == kI8Cols)
+      quality_pass<KB, kHold, ALIGNED>(v, s, P, c0, last, K, nc, q0, qi, held, a, kI8Cols, dacc,
+                                       qacc, aacc);
+    else
+      quality_pass<KB, kHold, ALIGNED>(v, s, P, c0, last, K, nc, q0, qi, held, a, nv, dacc, qacc,
+                                       aacc);
+  }
+
+  // the block's partials: warp shuffles, then warps in a fixed order
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll (KB <= 16 ? KB : 1)
+  for (int k = 0; k < KB; ++k) {
+    if (k < K) {
+      const float d = warp_sum(dacc[k]);
+      const float q = warp_sum(qacc[k]);
+      if (lane == 0) {
+        s_red[warp][k] = d;
+        s_red[warp][KB + k] = q;
+      }
+    }
+  }
+  const float as = warp_sum(aacc);
+  if (lane == 0) s_red[warp][2 * KB] = as;
+  __syncthreads();
+  // partials output-major: part[o * nblocks + block]
+  const int t = threadIdx.x, no = 2 * K + 1, nb = gridDim.x;
+  if (t <= 2 * KB) {
+    float sum = 0.f;
+    for (int i = 0; i < kWarps; ++i) sum += s_red[i][t];
+    const int o = t < K ? t : t >= KB && t < KB + K ? K + t - KB : t == 2 * KB ? 2 * K : -1;
+    if (o >= 0) part[(long long)o * nb + blockIdx.x] = sum;
+    __threadfence();  // the partial is visible before the grid barrier
+  }
+
+  // block 0 sums every block's partials in a fixed order once all are
+  // written: a warp takes four outputs at a time, each lane nine blocks of
+  // each, so all of a warp's loads are in flight at once (grid <= 32 *
+  // kI8TailLoads)
+  cooperative_groups::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  __threadfence();
+  for (int j0 = 0; warp + kWarps * j0 < no; j0 += 4) {
+    float x[4][kI8TailLoads];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int o = warp + kWarps * (j0 + jj);
+#pragma unroll
+      for (int u = 0; u < kI8TailLoads; ++u) {
+        const int bb = lane + 32 * u;
+        x[jj][u] = o < no && bb < nb ? __ldcg(part + (long long)o * nb + bb) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kI8TailLoads; ++u) sum += x[jj][u];
+      sum = warp_sum(sum);
+      const int o = warp + kWarps * (j0 + jj);
+      if (lane == 0 && o < no) out[o] = sum;
+    }
+  }
+}
+
+// The most blocks of agg_quality_i8_kernel<KB, ALIGNED> that the current
+// device holds at once (a cooperative launch takes no more), by device.
+template <int KB, bool ALIGNED>
+int i8_resident() {
+  static int cache[64] = {};
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] > 0) return cache[dev];
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, agg_quality_i8_kernel<KB, ALIGNED>,
+                                                    kThreads, 0) != cudaSuccess)
+    return 0;
+  return cache[dev] = per_sm * sms;
+}
+
+// One cooperative launch of at most `nblocks` blocks, no more than are
+// resident at once.
+template <int KB, bool ALIGNED>
+int launch_i8(int nblocks, cudaStream_t st, const unsigned char* v, const float* s,
+              const float* w, float* agg, float* part, float* out, int K, int P, int chunk,
+              int nc) {
+  const int resident = i8_resident<KB, ALIGNED>();
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nblocks < resident ? nblocks : resident, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, agg_quality_i8_kernel<KB, ALIGNED>, v, s, w, agg, part,
+                                 out, K, P, chunk, nc);
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. `out` holds dots (K), sq (K) and asq (1)
@@ -226,16 +498,37 @@ extern "C" int fedavg_agg_quality_bf16(const void* u, const void* w, void* agg,
 }
 
 // From int8 payloads: values (K, P) int8, scales (K, nc) f32 with nc =
-// ceil(P / chunk); agg is f32.
+// ceil(P / chunk); agg (P,) f32; part: nblocks * (2K + 1) f32 of scratch.
+// One cooperative launch of at most nblocks blocks. Returns 0 or the CUDA
+// error code.
 extern "C" int fedavg_agg_quality_i8(const void* values, const void* scales, const void* w,
-                                     void* agg, void* part_dots, void* part_sq, void* part_asq,
-                                     void* out, int K, long long P, int chunk, long long nc,
-                                     int nblocks, void* stream) {
-  if (chunk < 1 || nc != (P + chunk - 1) / chunk) return (int)cudaErrorInvalidValue;
-  const Int8Load load{static_cast<const signed char*>(values),
-                      static_cast<const float*>(scales), P, nc, chunk};
-  return launch<Int8Load, float>(load, w, agg, part_dots, part_sq, part_asq, out, K, P, nblocks,
-                                 static_cast<cudaStream_t>(stream));
+                                     void* agg, void* part, void* out, int K, long long P,
+                                     int chunk, long long nc, int nblocks, void* stream) {
+  if (K < 1 || K > kMaxK || P < 1 || P > 2147483647LL - kI8Cols || chunk < 1 ||
+      nc != (P + chunk - 1) / chunk || nblocks < 1 || nblocks > kI8MaxBlocks)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* v = static_cast<const unsigned char*>(values);
+  const auto* s = static_cast<const float*>(scales);
+  const auto* ww = static_cast<const float*>(w);
+  auto* aa = static_cast<float*>(agg);
+  auto* pp = static_cast<float*>(part);
+  auto* oo = static_cast<float*>(out);
+  const int p = (int)P, q = (int)nc;
+  const bool aligned = chunk % kI8Cols == 0;
+  int rc;
+  if (K <= 16)
+    rc = aligned ? launch_i8<16, true>(nblocks, st, v, s, ww, aa, pp, oo, K, p, chunk, q)
+                 : launch_i8<16, false>(nblocks, st, v, s, ww, aa, pp, oo, K, p, chunk, q);
+  else if (K <= 32)
+    rc = aligned ? launch_i8<32, true>(nblocks, st, v, s, ww, aa, pp, oo, K, p, chunk, q)
+                 : launch_i8<32, false>(nblocks, st, v, s, ww, aa, pp, oo, K, p, chunk, q);
+  else
+    rc = aligned ? launch_i8<64, true>(nblocks, st, v, s, ww, aa, pp, oo, K, p, chunk, q)
+                 : launch_i8<64, false>(nblocks, st, v, s, ww, aa, pp, oo, K, p, chunk, q);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
+
+extern "C" int fedavg_agg_quality_i8_max_blocks() { return kI8MaxBlocks; }
 
 extern "C" int fedavg_agg_quality_max_k() { return kMaxK; }

@@ -21,9 +21,12 @@ through the kernel; set an entry to 0 to start a count.
 - ``segmented_topk`` replaces ``src/repro/kernels/segmented_topk.py``
   (line 62): the per-shard frontier of the fleet-scale stage 1, launched
   once per frontier (per task, and again per escalation).
-- ``mkp_utility`` replaces ``src/repro/kernels/mkp_utility.py`` (line
-  42): the Toyoda update of stage 2's device MKP greedy, launched once
-  per greedy iteration.
+- ``mkp_utility`` and ``mkp_greedy`` replace
+  ``src/repro/kernels/mkp_utility.py`` (line 42): the Toyoda update of
+  stage 2's MKP greedy, one rescoring as the reference's
+  ``ops.mkp_utility`` (no path of the port calls it), and the whole
+  greedy of one MKP solve with that rescoring inside, launched once a
+  solve by ``engine.solve_mkp_greedy_device``.
 - ``topk_sparsify``, ``quantize_i8``, ``dequantize_i8`` and
   ``fedavg_agg_quality_i8`` replace ``src/repro/kernels/compression.py``
   (lines 81, 117, 145, 197): the codecs of the compressed update plane
@@ -59,9 +62,9 @@ from . import segmented_topk as _segmented_topk
 from . import swiglu as _swiglu
 
 LAUNCHES = {"fedavg_agg": 0, "fedavg_agg_quality": 0, "segmented_topk": 0,
-            "mkp_utility": 0, "topk_sparsify": 0, "quantize_i8": 0,
-            "dequantize_i8": 0, "fedavg_agg_quality_i8": 0, "rmsnorm": 0,
-            "swiglu": 0, "flash_attention": 0, "mlstm_scan": 0}
+            "mkp_utility": 0, "mkp_greedy": 0, "topk_sparsify": 0,
+            "quantize_i8": 0, "dequantize_i8": 0, "fedavg_agg_quality_i8": 0,
+            "rmsnorm": 0, "swiglu": 0, "flash_attention": 0, "mlstm_scan": 0}
 
 
 def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -119,6 +122,20 @@ def mkp_utility(values: torch.Tensor, weights: torch.Tensor,
         return ref.mkp_utility_ref(values, weights, residual, selectable)
     out = _mkp_utility.mkp_utility(values, weights, residual, selectable)
     LAUNCHES["mkp_utility"] += 1
+    return out
+
+
+def mkp_greedy(values: torch.Tensor, weights: torch.Tensor,
+               capacities: torch.Tensor, max_size: int | None = None):
+    """The whole Toyoda greedy of one MKP solve (at most ``max_size``
+    picks, None: n). Returns ``(in_sel (n,) bool, used (m,) f32)``; see
+    :func:`repro_torch.kernels.ref.mkp_greedy_ref`. On the card one launch
+    a solve, and both outputs are views of one buffer
+    (:func:`repro_torch.kernels.mkp_utility.packed`)."""
+    if values.device.type == "cpu":
+        return ref.mkp_greedy_ref(values, weights, capacities, max_size)
+    out = _mkp_utility.mkp_greedy(values, weights, capacities, max_size)
+    LAUNCHES["mkp_greedy"] += 1
     return out
 
 
@@ -286,6 +303,6 @@ PLAIN = types.SimpleNamespace(
 __all__ = ["LAUNCHES", "PLAIN", "bshd", "dequantize_i8", "fedavg_agg",
            "fedavg_agg_quality", "fedavg_agg_tree",
            "fedavg_agg_quality_i8", "flash_attention", "flash_attention_bshd",
-           "mkp_utility", "mlstm_scan", "mlstm_scan_bshd", "quantize_i8",
-           "rmsnorm", "scan_bshd", "segmented_topk", "swiglu",
+           "mkp_greedy", "mkp_utility", "mlstm_scan", "mlstm_scan_bshd",
+           "quantize_i8", "rmsnorm", "scan_bshd", "segmented_topk", "swiglu",
            "topk_sparsify"]

@@ -132,6 +132,33 @@ def mkp_utility_ref(values: torch.Tensor, weights: torch.Tensor,
     return torch.where(fits, util, torch.full_like(util, float("-inf")))
 
 
+def mkp_greedy_ref(values: torch.Tensor, weights: torch.Tensor,
+                   capacities: torch.Tensor, max_size: int | None = None):
+    """Toyoda greedy of one MKP solve, in f32 as the reference's
+    ``_mkp_greedy_jax``: each of ``max_size`` (None: n) iterations rescores
+    every item through :func:`mkp_utility_ref` against
+    ``capacities - used``, takes the first maximum (``torch.argmax``: a NaN
+    counts as the maximum) and, if its utility is finite, marks the item
+    and adds its weights to ``used``. The reference's loop stops at the
+    first iteration that is not finite; such an iteration changes nothing,
+    and so does every one after it, so this loop runs all of them with no
+    host sync inside. Returns ``(in_sel (n,) bool, used (m,) f32)``."""
+    v = values.to(torch.float32)
+    w = weights.to(torch.float32)
+    cap = capacities.to(torch.float32)
+    n, m = w.shape
+    used = torch.zeros(m, dtype=torch.float32, device=w.device)
+    in_sel = torch.zeros(n, dtype=torch.bool, device=w.device)
+    zero = torch.zeros(m, dtype=torch.float32, device=w.device)
+    for _ in range(n if max_size is None else int(max_size)):
+        util = mkp_utility_ref(v, w, cap - used, ~in_sel)
+        j = torch.argmax(util).view(1)          # first maximum, as jnp
+        ok = torch.isfinite(util[j])            # (1,), stays on the device
+        in_sel[j] = in_sel[j] | ok
+        used = used + torch.where(ok, w[j][0], zero)
+    return in_sel, used
+
+
 # The mask value of the JAX package's attention (bf16-safe, finite).
 NEG_INF = -2.0 ** 30
 

@@ -406,6 +406,19 @@ def test_mkp_utility_matches_plain_bitwise(cuda, n, m):
     assert torch.equal(got, ref.mkp_utility_ref(*args))
 
 
+def test_mkp_utility_keeps_a_nan_penalty(cuda):
+    """A NaN penalty (an infinite weight under an infinite capacity:
+    inf * 0) stays NaN, as ``torch.clamp_min`` and ``jnp.maximum`` keep
+    it, so the utility is NaN (the kernel once clamped it to 1e-12)."""
+    v, w, r, sel = mkp_input(19, 10, cuda)
+    w[3], r[1], sel[3] = 0.0, float("inf"), True
+    w[3, 1] = float("inf")
+    got, exp = ops.mkp_utility(v, w, r, sel), ref.mkp_utility_ref(v, w, r, sel)
+    assert torch.isnan(exp[3]) and torch.isnan(got[3])
+    keep = ~torch.isnan(exp)
+    assert torch.equal(got[keep], exp[keep])
+
+
 def test_mkp_utility_is_deterministic(cuda):
     args = mkp_input(3846, 10, cuda)
     assert torch.equal(ops.mkp_utility(*args), ops.mkp_utility(*args))
@@ -432,6 +445,144 @@ def test_device_mkp_greedy_equals_cpu(cuda):
     b = engine.solve_mkp_greedy_device(v, w, cap, 13, device="cpu")
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+def greedy_instance(n, m, kind, seed=0):
+    """An MKP instance as numpy f32 (values, weights, capacities).
+    ``random``: integer weights, capacities at 0.4 of the column sums;
+    ``ties``: values the weights' sums and one power-of-two capacity for
+    every knapsack, so the first utilities tie exactly; ``all``: every
+    item fits; ``nofit``: none does; ``nan`` / ``inf``: one fitting item's
+    value is NaN / +inf; ``zero``: one item weighs nothing (its utility is
+    v / 1e-12); ``nan_penalty``: an infinite capacity and an infinite
+    weight, whose penalty inf * 0 is NaN."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 30, (n, m)).astype(np.float32)
+    v = (w.sum(1) + rng.uniform(0, 5, n)).astype(np.float32)
+    cap = (0.4 * w.sum(0) + 1).astype(np.float32)
+    j = n // 3
+    if kind == "ties":
+        v, cap = w.sum(1), np.full(m, 64.0, np.float32)
+    elif kind == "all":
+        cap = w.sum(0) + 1
+    elif kind == "nofit":
+        w += 1
+        cap = np.full(m, 0.5, np.float32)
+    elif kind in ("nan", "inf"):
+        w[j] = 1
+        v[j] = np.nan if kind == "nan" else np.inf
+    elif kind == "zero":
+        w[j] = 0
+    elif kind == "nan_penalty":
+        cap[0], w[j] = np.inf, 1
+        w[j, 0] = np.inf
+    return v, w, cap
+
+
+# (n, m, max_size, kind): the clusters greedy_blocks takes from n (1
+# block to 512 items, 700 -> 2, 1,100 -> 3, 2,500 -> 5, 3,000 -> 6, stage
+# 2's 3,846 -> 8), past the cluster's shared memory (50,000 x 10 and up:
+# rows read from device memory), m past the register columns (13, 17,
+# 300) and past the shared knapsack terms (2,500), ragged m, and the
+# special utilities
+GREEDY_CASES = [
+    (1, 1, None, "random"), (1, 5, 3, "nofit"), (1, 3, None, "nan"),
+    (19, 10, None, "all"), (19, 10, None, "ties"), (200, 7, 30, "nan"),
+    (200, 7, 30, "inf"), (200, 13, 30, "zero"),
+    (200, 10, 30, "nan_penalty"), (200, 10, 250, "all"),
+    (200, 10, 30, "nofit"), (700, 10, 13, "random"),
+    (1100, 10, 13, "ties"), (2500, 10, 13, "random"),
+    (3000, 17, 13, "all"), (3846, 10, 13, "random"),
+    (3846, 10, 13, "ties"), (3846, 17, 13, "random"),
+    (3846, 10, 13, "all"), (15_000, 10, 13, "random"),
+    (15_000, 10, 13, "ties"), (50_000, 10, 13, "random"),
+    (100_003, 64, 13, "random"), (5000, 300, 13, "random"),
+    (50, 2500, 5, "random"), (50, 2500, 5, "all")]
+
+
+@pytest.mark.parametrize("n,m,max_size,kind", GREEDY_CASES, ids=str)
+def test_mkp_greedy_matches_plain_bitwise(cuda, n, m, max_size, kind):
+    v, w, cap = (torch.as_tensor(a).to(cuda)
+                 for a in greedy_instance(n, m, kind, seed=n + m))
+    before = ops.LAUNCHES["mkp_greedy"]
+    got = ops.mkp_greedy(v, w, cap, max_size)
+    assert ops.LAUNCHES["mkp_greedy"] == before + 1
+    exp = ref.mkp_greedy_ref(v, w, cap, max_size)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], exp[0])
+    assert torch.equal(got[1].view(torch.int32), exp[1].view(torch.int32))
+    if kind in ("nan", "inf", "nofit", "nan_penalty"):
+        assert not got[0].any()       # the first pick is not finite
+
+
+def test_mkp_greedy_blocks_cover_the_pool(cuda):
+    """A block per 512 items, at least the blocks whose shared memory
+    holds the pool (a row of 2,500 knapsacks is 10 KB, 23 rows a block),
+    at most one portable cluster of 8 and at most n."""
+    assert mkp_utility.greedy_blocks(1, 10) == 1
+    assert mkp_utility.greedy_blocks(512, 10) == 1
+    assert mkp_utility.greedy_blocks(1000, 10) == 2
+    # the clusters GREEDY_CASES reach through n
+    assert [mkp_utility.greedy_blocks(n, 10) for n in (700, 1100, 2500)] \
+        == [2, 3, 5]
+    assert mkp_utility.greedy_blocks(3000, 17) == 6
+    assert mkp_utility.greedy_blocks(3846, 10) == mkp_utility.MAX_BLOCKS
+    assert mkp_utility.greedy_blocks(100_003, 64) == mkp_utility.MAX_BLOCKS
+    assert mkp_utility.greedy_blocks(50, 2500) == 3
+    assert mkp_utility.greedy_blocks(5, 20_000) == 3       # 2 rows a block
+    assert mkp_utility.greedy_blocks(3, 100_000) == 3      # n caps it
+
+
+def test_mkp_greedy_repeats_and_replays_in_a_cuda_graph(cuda):
+    v, w, cap = (torch.as_tensor(a).to(cuda)
+                 for a in greedy_instance(3846, 10, "random", seed=1))
+    first = ops.mkp_greedy(v, w, cap, 13)
+    again = ops.mkp_greedy(v, w, cap, 13)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.mkp_greedy(v, w, cap, 13)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.mkp_greedy(v, w, cap, 13)
+    for seed in (2, 3):
+        for t, a in zip((v, w, cap), greedy_instance(3846, 10, "random", seed)):
+            t.copy_(torch.as_tensor(a))
+        graph.replay()
+        exp = ref.mkp_greedy_ref(v, w, cap, 13)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], exp[0]) and torch.equal(out[1], exp[1])
+
+
+def test_mkp_greedy_refuses_bad_inputs(cuda):
+    v, w, cap = (torch.as_tensor(a).to(cuda)
+                 for a in greedy_instance(10, 3, "random"))
+    with pytest.raises(ValueError, match="CUDA"):
+        mkp_utility.mkp_greedy(v.cpu(), w, cap)
+    with pytest.raises(ValueError, match="float32"):
+        ops.mkp_greedy(v.double(), w, cap)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.mkp_greedy(v, w, cap[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mkp_greedy(v, w.t().contiguous().t(), cap)
+    with pytest.raises(ValueError, match="max_size"):
+        ops.mkp_greedy(v, w, cap, -1)
+    with pytest.raises(ValueError, match="n, m"):
+        ops.mkp_greedy(v, w[:, :1].reshape(10), cap)
+
+
+def test_device_mkp_greedy_is_one_launch_a_solve(cuda):
+    v, w, cap = greedy_instance(3846, 10, "random", seed=5)
+    before = dict(ops.LAUNCHES)
+    a = engine.solve_mkp_greedy_device(v, w, cap, 13, device=cuda)
+    assert ops.LAUNCHES["mkp_greedy"] == before["mkp_greedy"] + 1
+    assert ops.LAUNCHES["mkp_utility"] == before["mkp_utility"]
+    b = engine.solve_mkp_greedy_device(v, w, cap, 13, device="cpu")
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[0].sum() == 13
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +817,146 @@ def test_compressed_chunk_kernels_vs_plain(cuda, text):
     assert off <= 0.001 * p
     torch.testing.assert_close(ik["q_values"], ip["q_values"], rtol=0,
                                atol=1e-4)
+
+
+def fma_f32(a, b, c):
+    """fmaf(a, b, c) over f32 arrays, rounded once: a * b is exact in f64,
+    TwoSum gives the f64 sum's error, and a sum that lands on an f32
+    midpoint goes the way the error points."""
+    p, c = a.astype(np.float64) * b.astype(np.float64), c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf),
+                                     np.float32(-np.inf)).astype(np.float32))
+    mid = (s != r) & ((r.astype(np.float64) + other) * 0.5 == s)
+    up = (err > 0) == (other > r)
+    return np.where(mid & (err != 0) & up, other, r)
+
+
+def i8_agg_fmaf(v, s, w, chunk):
+    """agg as the int8 kernel sums it: x = float(V) * S rounded once, then
+    fmaf(w_k, x, agg) over the clients in order, column by column."""
+    v, s, w = v.cpu().numpy(), s.cpu().numpy(), w.cpu().numpy()
+    K, P = v.shape
+    cols = np.arange(P) // chunk
+    agg = np.zeros(P, np.float32)
+    for k in range(K):
+        x = v[k].astype(np.float32) * s[k, cols]
+        agg = fma_f32(np.full(P, w[k], np.float32), x, agg)
+    return torch.as_tensor(agg)
+
+
+# K from 1 to 64 (each accumulator size, below and past the 16 rows held
+# in registers), P from 1 to the main path's (ragged tails of every
+# length, and rows off 16-byte alignment)
+I8_SHAPES = [(1, 1), (1, 7), (3, 15), (2, 16), (13, 17), (5, 100), (13, 4097),
+             (17, 5000), (33, 3001), (64, 1000), (13, 100_003), (13, MAIN_P)]
+
+
+@pytest.mark.parametrize("chunk", [100, 128, 256, 512])
+@pytest.mark.parametrize("K,P", I8_SHAPES, ids=str)
+def test_fedavg_agg_quality_i8_matches_plain(cuda, K, P, chunk):
+    x = codec_input(K, P, "normal", cuda)
+    v, s = (t.contiguous() for t in ref.quantize_i8_ref(x, chunk))
+    w = torch.softmax(torch.randn(K, generator=torch.Generator(
+        device=cuda).manual_seed(K), device=cuda), 0)
+    before = ops.LAUNCHES["fedavg_agg_quality_i8"]
+    got = ops.fedavg_agg_quality_i8(v, s, w, chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fedavg_agg_quality_i8"] == before + 1
+    exp = ref.fedavg_agg_quality_i8_ref(v, s, w, chunk)
+    torch.testing.assert_close(got[0], exp[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[1:], exp[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * P ** 0.5)
+    assert torch.equal(got[0].cpu(), i8_agg_fmaf(v, s, w, chunk))
+
+
+def test_fedavg_agg_quality_i8_repeats_and_replays_in_a_cuda_graph(cuda):
+    x = codec_input(13, MAIN_P, "ties", cuda)
+    v, s = ops.quantize_i8(x)
+    w = torch.softmax(torch.arange(13, dtype=torch.float32, device=cuda), 0)
+    first = ops.fedavg_agg_quality_i8(v, s, w)
+    for _ in range(3):
+        again = ops.fedavg_agg_quality_i8(v, s, w)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.fedavg_agg_quality_i8(v, s, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = [ops.fedavg_agg_quality_i8(v, s, w) for _ in range(3)]
+    for kind in ("normal", "zeros"):
+        nv, ns = ops.quantize_i8(codec_input(13, MAIN_P, kind, cuda))
+        v.copy_(nv)
+        s.copy_(ns)
+        graph.replay()
+        exp = ops.fedavg_agg_quality_i8(v, s, w)
+        torch.cuda.synchronize()
+        for o in out:
+            assert all(torch.equal(a, b) for a, b in zip(o, exp))
+
+
+def test_fedavg_agg_quality_i8_graphs_replay_side_by_side(cuda):
+    """Two graphs captured on ``torch.cuda.graph``'s one capture stream,
+    replayed at once on two streams beside a direct call: each call has
+    its own last-block ticket, so no sum is lost or mixed."""
+    inputs = []
+    for kind in ("normal", "ties"):
+        v, s = ops.quantize_i8(codec_input(13, 100_003, kind, cuda))
+        w = torch.softmax(torch.randn(13, generator=torch.Generator(
+            device=cuda).manual_seed(len(kind)), device=cuda), 0)
+        inputs.append((v, s, w))
+    want = [ops.fedavg_agg_quality_i8(*a) for a in inputs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in inputs:
+            ops.fedavg_agg_quality_i8(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for a in inputs:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append([ops.fedavg_agg_quality_i8(*a) for _ in range(8)])
+        graphs.append(graph)
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(20):
+        for st, graph in zip(streams, graphs):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                graph.replay()
+        direct = ops.fedavg_agg_quality_i8(*inputs[0])
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(direct, want[0]))
+        for out, exp in zip(outs, want):
+            for o in out:
+                assert all(torch.equal(a, b) for a, b in zip(o, exp))
+
+
+def test_fedavg_agg_quality_i8_refuses_bad_inputs(cuda):
+    v = torch.zeros(3, 100, dtype=torch.int8, device=cuda)
+    s = torch.ones(3, 1, device=cuda)
+    w = torch.full((3,), 1 / 3, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        kcomp.fedavg_agg_quality_i8(v.cpu(), s, w)
+    with pytest.raises(ValueError, match="int8"):
+        kcomp.fedavg_agg_quality_i8(v.float(), s, w)
+    with pytest.raises(ValueError, match="scales"):
+        kcomp.fedavg_agg_quality_i8(v, s, w, chunk=50)
+    with pytest.raises(ValueError, match="chunk"):
+        kcomp.fedavg_agg_quality_i8(v, s, w, chunk=0)
+    with pytest.raises(ValueError, match="weights"):
+        kcomp.fedavg_agg_quality_i8(v, s, w[:2])
+    with pytest.raises(ValueError, match="K <= 64"):
+        kcomp.fedavg_agg_quality_i8(
+            torch.zeros(65, 100, dtype=torch.int8, device=cuda),
+            torch.ones(65, 1, device=cuda), torch.ones(65, device=cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ CUDA kernels themselves are held against the plain versions on the card
   and at small C, with lowest-lane ties and -inf padding: exact (values
   and lanes of every finite entry); the CUDA wrapper's chunks a row and
   scratch size, against the source's layout;
-- ``mkp_utility`` over ragged n x m;
+- ``mkp_utility`` over ragged n x m; ``mkp_greedy``'s CPU route (its
+  plain version, the JAX comparison in tests/test_torch_selection_plane.py);
 - ``rmsnorm``, ``swiglu`` and ``flash_attention`` over the sweeps of
   tests/test_kernels.py (causal MHA / GQA / MQA, sliding windows, Sq=1
   against a long KV, non-causal, ragged S; ragged M, D, F).
@@ -38,8 +39,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fedavg_agg import fedavg_agg as pallas_agg
 from repro.kernels.fedavg_agg import fedavg_agg_quality as pallas_agg_quality
-from repro_torch.kernels import (build, fedavg_agg, mkp_utility, ops, ref,
-                                 segmented_topk)
+from repro_torch.kernels import (build, compression, fedavg_agg,
+                                 mkp_utility, ops, ref, segmented_topk)
 
 SHAPES = [(1, 1), (1, 64), (3, 130), (4, 128), (8, 50), (13, 1000),
           (13, 4097), (64, 255)]
@@ -484,6 +485,40 @@ def test_mkp_utility_kernel_refuses_cpu_tensors():
     args = [torch.as_tensor(a) for a in mkp_inputs(5, 2)]
     with pytest.raises(ValueError, match="CUDA"):
         mkp_utility.mkp_utility(*args)
+
+
+@pytest.mark.parametrize("max_size", [None, 0, 4, 30, 40])
+def test_mkp_greedy_ops_cpu_counts_nothing(max_size):
+    v, w, r, _ = (torch.as_tensor(a, dtype=torch.float32)
+                  for a in mkp_inputs(30, 4, seed=1))
+    before = dict(ops.LAUNCHES)
+    got = ops.mkp_greedy(v, w, r + 20, max_size)
+    want = ref.mkp_greedy_ref(v, w, r + 20, max_size)
+    assert ops.LAUNCHES == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].sum()) <= (30 if max_size is None else max_size)
+
+
+def test_mkp_greedy_kernel_refuses_cpu_tensors():
+    v, w, r, _ = (torch.as_tensor(a, dtype=torch.float32)
+                  for a in mkp_inputs(5, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        mkp_utility.mkp_greedy(v, w, r)
+
+
+@pytest.mark.parametrize("P,want", [(1, 1), (16, 1), (4096, 1), (4097, 2),
+                                    (1_070_794, 262), (2 ** 30, 288)])
+def test_i8_aggregate_grid(P, want):
+    """A thread a 16-column group, 256 threads a block, capped (the
+    kernel strides past the cap)."""
+    assert compression.i8_blocks(P) == want
+
+
+def test_i8_aggregate_refuses_cpu_tensors():
+    v = torch.zeros(3, 100, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        compression.fedavg_agg_quality_i8(v, torch.ones(3, 1),
+                                          torch.ones(3) / 3)
 
 
 # ---------------------------------------------------------------------------

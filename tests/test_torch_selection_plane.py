@@ -16,7 +16,10 @@ the JAX package's ``repro.core``, on the CPU at small sizes.
   ``backend="jax"`` on integer-cost pools, where f32 sums are exact;
 - stage 2's device MKP greedy and ``generate_subsets(backend="device")``
   against the reference's ``backend="jax"`` (same f32 arithmetic; the
-  instances have distinct utilities, so no f32 tie decides a pick);
+  instances have distinct utilities, so no f32 tie decides a pick), and
+  the greedy kernel's plain version (``kernels.ref.mkp_greedy_ref``)
+  against ``solve_mkp_greedy_jax`` on exact ties, NaN and +inf
+  utilities, no item fitting, n = 1 and ``max_size`` None or past n;
 - ``ServiceScheduler`` intake of several tasks, as the reference's.
 """
 import numpy as np
@@ -45,6 +48,7 @@ from repro_torch.core import (DevicePoolState, FLServiceProvider,
 from repro_torch.core.criteria import random_histograms, random_profiles
 from repro_torch.core.pool import ClientPoolState
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as ref_kernels
 
 TH = np.full(9, 0.05)
 CPU = "cpu"
@@ -365,6 +369,45 @@ def mkp_instance(seed, n, m=7):
     return v, w, 0.4 * w.sum(axis=0)
 
 
+def greedy_instance(kind, n, m=7, seed=0):
+    """An f32 MKP instance (values, weights, capacities) from
+    :func:`mkp_instance`. ``ties``: values the weights' sums and one
+    power-of-two capacity for every knapsack, as the default capacities
+    give one value for every class; with it the first utilities tie
+    exactly in f32 (every product and sum is exact whatever the order),
+    so the first index wins in both packages. ``all``: every item fits;
+    ``nofit``: none does; ``nan`` / ``inf``: one fitting item's value is
+    NaN / +inf (argmax takes the first NaN, else the +inf, in both
+    packages, and the greedy stops there); ``zero``: one item weighs
+    nothing (utility v / 1e-12); ``nan_penalty``: an infinite capacity
+    and an infinite weight, whose penalty inf * 0 is NaN."""
+    v, w, cap = mkp_instance(seed, n, m)
+    j = n // 3
+    if kind == "ties":
+        v, cap = w.sum(axis=1), np.full(m, 64.0)
+    elif kind == "all":
+        cap = w.sum(axis=0) + 1
+    elif kind == "nofit":
+        w, cap = w + 1, np.full(m, 0.5)
+    elif kind in ("nan", "inf"):
+        w[j], cap = 1, np.maximum(cap, 1)
+        v[j] = np.nan if kind == "nan" else np.inf
+    elif kind == "zero":
+        w[j] = 0
+    elif kind == "nan_penalty":
+        cap, w[j] = np.maximum(cap, 1), 1
+        cap[0], w[j, 0] = np.inf, np.inf
+    return tuple(np.asarray(a, np.float32) for a in (v, w, cap))
+
+
+# (kind, n, max_size): max_size None (n picks) and past n, n = 1
+GREEDY_CASES = [("random", 60, None), ("random", 80, 7), ("ties", 40, None),
+                ("ties", 150, 13), ("all", 25, None), ("all", 25, 40),
+                ("random", 1, None), ("all", 1, 5), ("nofit", 30, None),
+                ("nan", 30, None), ("inf", 30, None), ("zero", 30, 9),
+                ("nan_penalty", 30, None)]
+
+
 class TestDeviceMKP:
     @pytest.mark.parametrize("seed,n,max_size",
                              [(4, 25, None), (5, 60, None), (6, 80, 7)])
@@ -379,6 +422,34 @@ class TestDeviceMKP:
         np.testing.assert_array_equal(used, r_used)
         leg = mkp.solve_mkp_greedy(v, w, cap, max_size, local_search=False)
         assert sorted(np.flatnonzero(mask).tolist()) == leg.selected
+
+    @pytest.mark.parametrize("interpret", [None, True],
+                             ids=["jnp", "interpret"])
+    @pytest.mark.parametrize("kind,n,max_size", GREEDY_CASES, ids=str)
+    def test_plain_greedy_matches_reference_jax(self, kind, n, max_size,
+                                                interpret):
+        """``ref.mkp_greedy_ref``, the plain version of the greedy kernel,
+        against the reference's ``solve_mkp_greedy_jax`` through its jnp
+        utility and its Pallas kernel in interpret mode: mask and used
+        equal, and the port's CPU route through ``ops.mkp_greedy`` and
+        ``solve_mkp_greedy_device`` counts no launch."""
+        v, w, cap = greedy_instance(kind, n)
+        r_mask, r_used = ref_engine.solve_mkp_greedy_jax(
+            v, w, cap, max_size, interpret=interpret)
+        vt, wt, ct = (torch.as_tensor(a) for a in (v, w, cap))
+        mask, used = ref_kernels.mkp_greedy_ref(vt, wt, ct, max_size)
+        np.testing.assert_array_equal(mask.numpy(), r_mask)
+        np.testing.assert_array_equal(used.numpy(), r_used)
+        if kind in ("nan", "inf", "nofit", "nan_penalty"):
+            assert not r_mask.any()           # the first pick is not finite
+        before = dict(ops.LAUNCHES)
+        got = ops.mkp_greedy(vt, wt, ct, max_size)
+        e_mask, e_used = engine.solve_mkp_greedy_device(v, w, cap, max_size,
+                                                        device=CPU)
+        assert ops.LAUNCHES == before
+        assert torch.equal(got[0], mask) and torch.equal(got[1], used)
+        np.testing.assert_array_equal(e_mask, r_mask)
+        np.testing.assert_array_equal(e_used, r_used)
 
     def test_solve_mkp_device_backend(self):
         v, w, cap = mkp_instance(7, 40)
