@@ -112,10 +112,31 @@ plain PyTorch version. Phases, one line each:
     mamba heads): 32 / 32 / 1,024 / 2,080 launches of mlstm_scan /
     flash_attention / swiglu / rmsnorm;
 24. the entry points ``serve("xlstm-125m")`` and ``serve("hymba-1.5b")``
-    at their default (reduced) sizes.
+    at their default (reduced) sizes;
+25. the int8 codec kernels on non-finite input: ``quantize_i8``,
+    ``dequantize_i8`` and ``fedavg_agg_quality_i8`` against their plain
+    versions with a NaN in some chunks and +-inf in others, at the
+    compressed loop's shape and a ragged one, chunks 100-512: values and
+    scales equal (NaN compared as NaN), a NaN chunk with scale NaN and
+    values 0, a +-inf chunk with scale inf and values 0;
+26. period-checkpoint resume on the compressed plane: the CIFAR_CNN
+    device plane with ``"topk:0.05+int8"`` and FedAdam at phase 12's
+    size, 16 rounds uninterrupted, and the same run saved after round 8
+    (``save_state(..., trainer=)``), loaded into a fresh provider and
+    trainer (``load_state`` + ``restore_trainer_state``) and run to round
+    16: events, reputation and final params bit for bit;
+27. the federated LoRA LM task at SmolLM-360M's full width and depth
+    (bf16 backbone, f32 adapters of rank 4 on wq, wv and w_up: 860,160
+    parameters), 40 clients, subsets of 10, sequences of 128, batch 4, 2
+    local steps: 4 rounds in one chunk, then the same task saved after
+    round 2 and resumed, bit for bit; wall per round, the card's peak
+    memory, ``fedavg_agg_quality`` launches one a round, and the device
+    time of one more round split by kernel (``torch.profiler``);
+28. the three examples (``examples/*_torch.py``) on the card, each as a
+    subprocess that must exit 0.
 
-Phases 5, 8, 9, 12, 15, 16, 18, 22, 23 and 24 set their kernels' launch
-counts to 0 just before and read them just after. Each phase line carries the
+Phases 5, 8, 9, 12, 15, 16, 18, 22, 23, 24, 26 and 27 set their kernels'
+launch counts to 0 just before and read them just after. Each phase line carries the
 seconds since the script started. Any failure raises and exits non-zero. The
 last two lines are the kernel records and ``{"ok": true, "device":
 {...}}``.
@@ -2464,6 +2485,330 @@ def library_settings() -> tuple[float, float]:
     return pinned_ms, default_ms
 
 
+def non_finite_case(K, P, chunk, kind, g):
+    """Phase 25 inputs: unit normals with a NaN in every third chunk
+    (``nan``), or +inf in every third chunk and -inf in the next
+    (``inf``); the other chunks stay finite."""
+    x = torch.randn(K, P, generator=g, device="cuda")
+    nc = -(-P // chunk)
+    for c in range(0, nc, 3):
+        col = min(c * chunk + 5, P - 1)
+        if kind == "nan":
+            x[:, col] = float("nan")
+        else:
+            x[:, col] = float("inf")
+            if c + 1 < nc:
+                x[:, min((c + 1) * chunk + 9, P - 1)] = float("-inf")
+    return x
+
+
+def nan_equal(a, b) -> bool:
+    """Equal, NaN compared as NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0, a),
+                            torch.where(b.isnan(), 0, b)))
+
+
+def codec_non_finite() -> int:
+    """Phase 25: the int8 codec kernels on chunks holding NaN or +-inf,
+    against their plain versions (the JAX package's semantics). Returns
+    the number of cases."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(25)
+    n = 0
+    for K, P in ((MAIN_K, MAIN_P), (3, 100_003)):
+        for kind in ("nan", "inf"):
+            for chunk in (100, 128, 256, 512):
+                x = non_finite_case(K, P, chunk, kind, g)
+                v, s = ops.quantize_i8(x, chunk)
+                ev, es = ref.quantize_i8_ref(x, chunk)
+                d, ed = ops.dequantize_i8(v, s, chunk), \
+                    ref.dequantize_i8_ref(ev, es, chunk)
+                wt = torch.rand(K, generator=g, device="cuda")
+                wt = wt / wt.sum()
+                agg = ops.fedavg_agg_quality_i8(v, s, wt, chunk)
+                eagg = ref.fedavg_agg_quality_i8_ref(ev, es, wt, chunk)
+                torch.cuda.synchronize()
+                what = f"K={K} P={P} chunk={chunk} {kind}"
+                check(torch.equal(v, ev) and nan_equal(s, es),
+                      f"quantize_i8 {what}: values and scales equal the "
+                      f"plain version, NaN as NaN")
+                bad = ~torch.isfinite(s)
+                want = float("nan") if kind == "nan" else float("inf")
+                check(bool(bad.any()) and bool(torch.isfinite(s).any())
+                      and nan_equal(s[bad], torch.full_like(s[bad], want)),
+                      f"quantize_i8 {what}: the bad chunks' scales are "
+                      f"{want}, the others finite")
+                cols = torch.arange(P, device="cuda") // chunk
+                check(not bool(v[bad[:, cols]].any()),
+                      f"quantize_i8 {what}: a bad chunk's values are 0")
+                check(nan_equal(d, ed), f"dequantize_i8 {what}: equal, NaN "
+                                        f"as NaN")
+                for a, b in zip(agg, eagg):
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                               equal_nan=True)
+                n += 1
+    phase(25, f"int8 codec kernels on non-finite chunks vs plain on the "
+              f"card: {n} cases (K x P in 13x{MAIN_P} and 3x100003; chunks "
+              f"100, 128, 256, 512; NaN in every third chunk, or +inf and "
+              f"-inf in two of every three): quantize_i8 values and scales "
+              f"equal (NaN as NaN; NaN chunks scale NaN, +-inf chunks scale "
+              f"inf, values 0), dequantize_i8 equal, fedavg_agg_quality_i8 "
+              f"within rtol 1e-5 with NaN where the plain version has it")
+    return n
+
+
+def cifar_lifecycle(comp, opt, data, test, parts):
+    """A provider, a device-plane trainer and the task of phase 12's
+    compressed run, built as ``run_fl_experiment`` builds them; eval only
+    at round 0, so no eval draw differs between a run and its resume."""
+    from repro_torch.core import FLServiceProvider, TaskRequest
+    from repro_torch.fl.simulation import (DeviceFLSim, SimConfig,
+                                           pool_from_partition)
+    from repro_torch.models import cnn
+    sim = SimConfig(server_lr=0.01, eval_every=10_000)
+    pool = pool_from_partition(data.labels, parts, data.num_classes, seed=0)
+    trainer = DeviceFLSim(cnn.CIFAR_CNN, data, parts, test, sim,
+                          pad_subset_to=SUBSET_N + SUBSET_DELTA,
+                          compression=comp, server_opt=opt, device="cuda")
+    task = TaskRequest(budget=1e9, n_star=100, subset_size=SUBSET_N,
+                       subset_delta=SUBSET_DELTA, x_star=3,
+                       max_periods=10_000, scheduler="mkp", seed=0,
+                       round_chunk=8, max_rounds=16, compression=comp)
+    return FLServiceProvider(pool), trainer, task
+
+
+def event_key(e):
+    return (e.period, e.round_index, list(e.subset), e.weights.tolist(),
+            e.nid, e.metrics)
+
+
+def resumed_run(make, stop_after: int, tmp: str):
+    """``make()`` -> (provider, trainer, task). Steps a fresh task until
+    ``stop_after`` rounds are committed, saves it with the trainer's
+    server state, loads it into a fresh provider and trainer, and drains
+    it. Returns (events, final state, resumed trainer, launches of the
+    whole run, checkpoint bytes)."""
+    import os
+    from repro_torch.core import lifecycle
+    from repro_torch.kernels import ops
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    provider, trainer, task = make()
+    state, events = lifecycle.submit(provider, task), []
+    while len(events) < stop_after:
+        state, ev = lifecycle.step(provider, state, trainer)
+        events += ev
+    check(len(events) == stop_after, f"the run stops after round "
+          f"{stop_after}: a chunk ends there ({len(events)} committed)")
+    path = os.path.join(tmp, "task_state.ckpt")
+    events += lifecycle.save_state(path, state, flush=True, trainer=trainer)
+    size = os.path.getsize(path)
+    del provider, trainer, state
+    provider, trainer, _ = make()
+    state = lifecycle.load_state(path)
+    check(lifecycle.restore_trainer_state(state, trainer),
+          "the checkpoint carries the trainer's server state")
+    state, ev = lifecycle.drain(provider, state, trainer)
+    torch.cuda.synchronize()
+    return events + ev, state, trainer, dict(ops.LAUNCHES), size
+
+
+def compressed_resume() -> dict:
+    """Phase 26. Returns the launches of the resumed run by kernel."""
+    import tempfile
+    from repro_torch.core import lifecycle
+    from repro_torch.data.synthetic import make_classification_data
+    from repro_torch.fl.partition import partition_labels
+    from repro_torch.kernels import ops
+    comp, opt, rounds, cut = "topk:0.05+int8", "fedadam", 16, 8
+    full = make_classification_data("cifar", 12_000, seed=0)
+    data, test = full.subset(np.arange(10_000)), \
+        full.subset(np.arange(10_000, 12_000))
+    parts = partition_labels(data.labels, 100, "type2", data.num_classes,
+                             seed=0)
+    make = lambda: cifar_lifecycle(comp, opt, data, test, parts)
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    provider, trainer, task = make()
+    t = time.perf_counter()
+    state, ref_events = lifecycle.drain(provider,
+                                        lifecycle.submit(provider, task),
+                                        trainer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    whole = dict(ops.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        events, rstate, rtrainer, counts, size = resumed_run(make, cut, tmp)
+    check(len(ref_events) == len(events) == rounds,
+          f"{rounds} rounds each way: {len(ref_events)} / {len(events)}")
+    check([event_key(e) for e in events]
+          == [event_key(e) for e in ref_events],
+          "resumed events (period, round, subset, weights, nid, loss, "
+          "bytes) equal the uninterrupted run's")
+    check(lifecycle.as_run_result(rstate).reputation
+          == lifecycle.as_run_result(state).reputation,
+          "resumed reputation equals the uninterrupted run's")
+    want, got = trainer.export_state(), rtrainer.export_state()
+    check(sorted(want) == sorted(got)
+          and all(np.array_equal(want[k], got[k]) for k in want),
+          "resumed params and FedAdam moments equal the uninterrupted "
+          "run's bit for bit")
+    rows = ("fedavg_agg_quality", "topk_sparsify", "quantize_i8",
+            "dequantize_i8", "fedavg_agg_quality_i8")
+    for name in rows:
+        want = rounds if name != "fedavg_agg_quality_i8" else 0
+        check(whole[name] == counts[name] == want,
+              f"{name}: {whole[name]} / {counts[name]} launches == {want}")
+    phase(26, f"period-checkpoint resume, CIFAR_CNN device plane, {comp} + "
+              f"{opt}, 100 clients, subsets of 10 +- 3, n_train 10,000: "
+              f"{rounds} rounds uninterrupted ({wall:.2f} s) and saved after "
+              f"round {cut} ({size} B with the trainer's "
+              f"{len(rstate.trainer_state)} arrays), resumed in a fresh "
+              f"provider and trainer: events, reputation, params and "
+              f"FedAdam moments bit-equal; launches (uninterrupted / saved + "
+              f"resumed) " + ", ".join(f"{n} {whole[n]} / {counts[n]}"
+                                       for n in rows))
+    return counts
+
+
+# The federated LM task at SmolLM-360M's full width and depth: clients,
+# subset size, sequence length, batch, local steps, rounds, training and
+# test sequences. 40 clients (20 sequences each): stage 2 schedules 20
+# clients in subsets of 10 as [10, 10, 9], three rounds a period, so four
+# rounds in one chunk need the larger pool, whose periods are [10] x 5.
+LM_CLIENTS, LM_SUBSET, LM_SEQ, LM_BATCH, LM_STEPS = 40, 10, 128, 4, 2
+LM_ROUNDS, LM_CUT, LM_TRAIN, LM_TEST = 4, 2, 800, 40
+
+
+def lm_lifecycle(data, test, parts, round_chunk):
+    """A provider, the full-width LoRA trainer and its task."""
+    from repro_torch.configs import smollm_360m
+    from repro_torch.core import FLServiceProvider, TaskRequest
+    from repro_torch.fl.simulation import SimConfig, pool_from_partition
+    from repro_torch.fl.transformer_task import TransformerFLSim
+    sim = SimConfig(batch_size=LM_BATCH, local_steps=LM_STEPS, local_lr=5.0,
+                    server_lr=1.0, dropout_rate=0.0, eval_every=10_000,
+                    seed=0)
+    pool = pool_from_partition(data.labels, parts, data.num_classes, seed=0)
+    trainer = TransformerFLSim(smollm_360m.config(), data, parts, test, sim,
+                               device="cuda")
+    task = TaskRequest(budget=1e9, n_star=LM_CLIENTS, subset_size=LM_SUBSET,
+                       subset_delta=0, x_star=3, max_periods=10_000, seed=0,
+                       round_chunk=round_chunk, max_rounds=LM_ROUNDS)
+    return FLServiceProvider(pool), trainer, task
+
+
+def lm_full_width() -> dict:
+    """Phase 27. Returns the launches of the uninterrupted run."""
+    import tempfile
+    from repro_torch.core import lifecycle
+    from repro_torch.data.synthetic import LMData, make_lm_data
+    from repro_torch.fl.partition import partition_labels
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+    vocab = 49_152
+    full = make_lm_data(LM_TRAIN + LM_TEST, LM_SEQ, vocab, seed=0)
+    data = LMData(full.tokens[:LM_TRAIN], full.labels[:LM_TRAIN],
+                  full.num_classes, vocab)
+    test = LMData(full.tokens[LM_TRAIN:], full.labels[LM_TRAIN:],
+                  full.num_classes, vocab)
+    parts = partition_labels(data.labels, LM_CLIENTS, "type2",
+                             data.num_classes, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    provider, trainer, task = lm_lifecycle(data, test, parts, LM_ROUNDS)
+    cfg = trainer.cfg
+    n_base = common.count_params(trainer.base_params)
+    n_ad = sum(v.numel() for v in trainer.params.values())
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.dtype)
+          == (32, 960, 15, 5, 2560, vocab, "bfloat16"),
+          f"SmolLM-360M at full width and depth, bf16: {cfg}")
+    check(n_ad == 860_160, f"LoRA adapters: {n_ad} parameters")
+    state = lifecycle.submit(provider, task)
+    state, _ = lifecycle.step(provider, state, trainer)   # -> SCHEDULED
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, ref_events = lifecycle.step(provider, state, trainer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(len(ref_events) == LM_ROUNDS,
+          f"{LM_ROUNDS} rounds in one chunk, got {len(ref_events)}")
+    check([len(e.subset) for e in ref_events] == [LM_SUBSET] * LM_ROUNDS,
+          f"subsets of {LM_SUBSET}: {[len(e.subset) for e in ref_events]}")
+    state, more = lifecycle.drain(provider, state, trainer)
+    check(not more, "the task ends at its round budget")
+    launches = dict(ops.LAUNCHES)
+    check(launches["fedavg_agg_quality"] == LM_ROUNDS,
+          f"fedavg_agg_quality launches {launches['fedavg_agg_quality']} == "
+          f"{LM_ROUNDS}, one a round")
+    losses = [e.metrics["loss"] for e in ref_events]
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    acc = trainer.evaluate()
+    with tempfile.TemporaryDirectory() as tmp:
+        events, rstate, rtrainer, counts, size = resumed_run(
+            lambda: lm_lifecycle(data, test, parts, LM_CUT), LM_CUT, tmp)
+    check([event_key(e) for e in events]
+          == [event_key(e) for e in ref_events],
+          "resumed LM events (period, round, subset, weights, nid, loss) "
+          "equal the uninterrupted run's")
+    check(all(torch.equal(trainer.params[n], rtrainer.params[n])
+              for n in trainer.params),
+          "resumed adapters equal the uninterrupted run's bit for bit")
+    check(counts["fedavg_agg_quality"] == LM_ROUNDS,
+          "one fedavg_agg_quality launch a round in the resumed run")
+    # one more round of the uninterrupted trainer under the profiler
+    members = list(state.pool)[:LM_SUBSET]
+    _, (dev_ms, n_kern, top, _) = device_profile(
+        lambda: trainer.run_rounds(LM_ROUNDS, [members],
+                                   [np.full(LM_SUBSET, 1 / LM_SUBSET,
+                                            np.float32)]))
+    del trainer, rtrainer
+    torch.cuda.empty_cache()
+    phase(27, f"federated LoRA LM task, SmolLM-360M at full width and depth "
+              f"({n_base} backbone params, bf16, random weights from seed "
+              f"0; {n_ad} f32 adapter params, rank 4 on attn/wq, attn/wv, "
+              f"mlp/w_up), {LM_CLIENTS} clients, subsets of {LM_SUBSET}, "
+              f"sequences of {LM_SEQ}, batch {LM_BATCH}, {LM_STEPS} local "
+              f"steps: {LM_ROUNDS} rounds in one chunk {wall:.2f} s = "
+              f"{wall / LM_ROUNDS * 1e3:.0f} ms/round, loss {losses[0]:.4f} "
+              f"-> {losses[-1]:.4f}, next-token accuracy {acc:.4f}, peak "
+              f"device memory {peak:.2f} GiB; fedavg_agg_quality launches "
+              f"{launches['fedavg_agg_quality']} (U = {LM_SUBSET} x {n_ad} "
+              f"f32); resumed after round {LM_CUT} from {size} B in chunks "
+              f"of {LM_CUT}: events and adapters bit-equal, launches "
+              f"{counts['fedavg_agg_quality']}; one more round under the "
+              f"profiler: {dev_ms:.1f} ms of device time in {n_kern} "
+              f"kernels; top: {top}")
+    return launches
+
+
+def examples_on_card() -> None:
+    """Phase 28: the port's examples as a user runs them, on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    lines = []
+    for name, args in (("quickstart_torch.py", []),
+                       ("train_noniid_torch.py",
+                        ["--clients", "20", "--rounds", "10",
+                         "--data-plane", "device"]),
+                       ("fl_service_demo_torch.py", [])):
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                              *args], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        check(out.returncode == 0, f"examples/{name} {' '.join(args)} exit "
+              f"{out.returncode}: {out.stdout[-1500:]} {out.stderr[-3000:]}")
+        last = out.stdout.strip().splitlines()[-1]
+        lines.append(f"{name} {' '.join(args)} ({time.perf_counter() - t:.1f}"
+                     f" s): {last[:160]}")
+    phase(28, "examples on the card, each exit 0 | " + " | ".join(lines))
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2495,11 +2840,18 @@ def main() -> int:
     scan_err = scan_kernel_vs_plain()
     ssm_launches = ssm_full_width()
     ssm_serve_entry_points()
+    codec_non_finite()
+    resume_launches = compressed_resume()
+    lm_launches = lm_full_width()
+    examples_on_card()
+    by_path = lambda name: {"launches_by_path": {
+        "compressed_resume": resume_launches[name],
+        "lm_full_width": lm_launches[name]}}
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",
                "src/repro/kernels/fedavg_agg.py:91", launches, err,
-               t["fedavg_agg_quality"]),
+               {**t["fedavg_agg_quality"], **by_path("fedavg_agg_quality")}),
         record("fedavg_agg", csrc + "fedavg_agg.cu",
                "src/repro/kernels/fedavg_agg.py:40", agg_launches, agg_err,
                t["fedavg_agg"]),
@@ -2523,7 +2875,8 @@ def main() -> int:
             ("fedavg_agg_quality_i8", "fedavg_agg_quality.cu", 197)):
         records.append(record(name, csrc + source,
                               f"src/repro/kernels/compression.py:{line}",
-                              codec_launches[name], errs[name], t[name]))
+                              codec_launches[name], errs[name],
+                              {**t[name], **by_path(name)}))
     for name, line in (("rmsnorm", "rmsnorm.py:23"), ("swiglu", "swiglu.py:38"),
                        ("flash_attention", "flash_attention.py:77")):
         records.append(record(name, csrc + name + ".cu",

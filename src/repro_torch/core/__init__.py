@@ -24,8 +24,9 @@ plus the device selection plane in torch:
   online harness: arrival, availability and device-speed traces, a
   virtual-clock ``OnlineDriver`` replaying them against a live
   ``ServiceScheduler``, and SLA telemetry.
-
-Not ported yet (ROADMAP.md Queue 1): checkpoint files.
+- ``lifecycle.save_state`` / ``load_state`` write and read a task's
+  state (and, with ``trainer=``, its trainer's server state) through
+  ``repro_torch.checkpoint``, in the JAX package's file format.
 """
 from .criteria import (CRITERIA, NUM_CRITERIA, ClientProfile, build_profiles,
                        cosine_similarity, data_dist_score, linear_cost, nid,
@@ -39,8 +40,8 @@ from .lifecycle import (AsyncTrainer, InFlightError, PendingChunk,
                         RejectedTask, RoundEvent, ServiceScheduler,
                         ServiceState, TaskPhase, TaskState, Trainer,
                         apply_pool_selection, as_run_result, collect,
-                        dispatch, drain, resolve_trainer,
-                        single_round_adapter, step, submit)
+                        dispatch, drain, load_state, resolve_trainer,
+                        save_state, single_round_adapter, step, submit)
 from .mkp import MKPResult, solve_mkp, solve_mkp_bnb, solve_mkp_greedy
 from .policy import (SchedulingPolicy, SelectionPolicy,
                      available_scheduling_policies,
@@ -86,8 +87,8 @@ __all__ = [
     "AsyncTrainer", "InFlightError", "PendingChunk", "RejectedTask",
     "RoundEvent", "ServiceScheduler", "ServiceState", "TaskPhase",
     "TaskState", "Trainer", "apply_pool_selection", "as_run_result",
-    "collect", "dispatch", "drain", "resolve_trainer",
-    "single_round_adapter", "step", "submit",
+    "collect", "dispatch", "drain", "load_state", "resolve_trainer",
+    "save_state", "single_round_adapter", "step", "submit",
     "FaultPlan", "RoundOutcome",
     "ArrivalTrace", "DeviceSpeedProfile", "DiurnalAvailability",
     "HeterogeneousFaultPlan", "OnlineDriver", "TelemetryEvent",

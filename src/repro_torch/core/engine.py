@@ -99,11 +99,13 @@ def greedy_knapsack(scores: np.ndarray, costs: np.ndarray, budget: float,
     return chosen, float(scores[chosen].sum()), float(costs[chosen].sum())
 
 
-def _greedy_batch_device(scores, costs, budgets, valid, device):
+def _greedy_batch_device(scores, costs, budgets, valid, device,
+                         skip_unaffordable: bool = False):
     """(T,) budgets x (T, n) validity -> (T, n) selection masks, on the
     device in f32: per task a stable descending sort of the masked
     ratio, then the paper's prefix rule (stop at the first client whose
-    cost exceeds the budget left)."""
+    cost exceeds the budget left), or with ``skip_unaffordable`` the
+    skip rule (pass over that client and go on)."""
     dev = resolve_device(device)
     s = torch.from_numpy(np.asarray(scores, np.float32)).to(dev)
     c = torch.from_numpy(np.asarray(costs, np.float32)).to(dev)
@@ -116,13 +118,51 @@ def _greedy_batch_device(scores, costs, budgets, valid, device):
     # invalid clients sort last; infinite cost makes them hard stops
     sv = v.gather(1, order)
     oc = torch.where(sv, c[order], -neg)
-    spent = torch.cat([torch.zeros(T, 1, device=dev),
-                       torch.cumsum(oc, dim=1)[:, :-1]], dim=1)
-    stop = oc > b[:, None] - spent
-    first = torch.where(stop.any(dim=1), stop.to(torch.int32).argmax(dim=1),
-                        torch.full((T,), n, device=dev))
-    take = sv & (torch.arange(n, device=dev)[None, :] < first[:, None])
+    if skip_unaffordable:
+        take = _skip_take(oc, sv, b)
+    else:
+        spent = torch.cat([torch.zeros(T, 1, device=dev),
+                           torch.cumsum(oc, dim=1)[:, :-1]], dim=1)
+        stop = oc > b[:, None] - spent
+        first = torch.where(stop.any(dim=1),
+                            stop.to(torch.int32).argmax(dim=1),
+                            torch.full((T,), n, device=dev))
+        take = sv & (torch.arange(n, device=dev)[None, :] < first[:, None])
     return torch.zeros_like(v).scatter_(1, order, take).cpu().numpy()
+
+
+def _skip_take(oc, sv, budgets):
+    """The skip rule over ratio-sorted costs ``oc`` (T, n) f32 (inf where
+    not valid): a client is taken when its cost fits the budget left.
+    Between two skipped clients every client fits, so each pass takes
+    the longest affordable run from a task's cursor by a cumulative sum,
+    skips the client that ends it and moves the cursor past it; a task
+    is done when no client from its cursor on is cheap enough (the
+    suffix minimum, the numpy path's early exit). One pass per skipped
+    client, each O(T n), vectorised over tasks."""
+    T, n = oc.shape
+    dev = oc.device
+    pos = torch.arange(n, device=dev)[None, :]
+    inf = torch.full((T, 1), float("inf"), device=dev)
+    sufmin = torch.cat([torch.flip(torch.cummin(torch.flip(oc, [1]), 1).values,
+                                   [1]), inf], dim=1)        # (T, n + 1)
+    cursor = torch.zeros(T, 1, dtype=torch.int64, device=dev)
+    left = budgets.clone()
+    take = torch.zeros_like(sv)
+    while True:
+        live = sufmin.gather(1, cursor)[:, 0] <= left
+        if not bool(live.any()):
+            return take
+        avail = sv & (pos >= cursor) & live[:, None]
+        run = torch.where(avail, oc, 0.0)
+        over = avail & (torch.cumsum(run, dim=1) > left[:, None])
+        first = torch.where(over.any(dim=1),
+                            over.to(torch.int32).argmax(dim=1),
+                            torch.full((T,), n, device=dev))[:, None]
+        got = avail & (pos < first)
+        take |= got
+        left = left - torch.where(got, oc, 0.0).sum(dim=1)
+        cursor = torch.where(live[:, None], (first + 1).clamp_max(n), cursor)
 
 
 def greedy_knapsack_batch(scores: np.ndarray, costs: np.ndarray,
@@ -168,11 +208,8 @@ def greedy_knapsack_batch(scores: np.ndarray, costs: np.ndarray,
     else:
         valid = np.asarray(valid, dtype=bool)
     if backend == "device":
-        if skip_unaffordable:
-            raise NotImplementedError(
-                "skip_unaffordable on the device batch is not ported: no "
-                "service path passes it (ROADMAP.md Queue 1 item 2)")
-        masks = _greedy_batch_device(scores, costs, budgets, valid, device)
+        masks = _greedy_batch_device(scores, costs, budgets, valid, device,
+                                     skip_unaffordable)
         return masks, masks @ scores, masks @ costs
     if skip_unaffordable:
         # sequential recurrence per task; no shared-prefix shortcut

@@ -665,14 +665,20 @@ def save_state(path: str, state: TaskState, flush: bool = False,
     checkpoint file carries control plane *and* model; restore with
     :func:`load_state` + :func:`restore_trainer_state`.
     """
-    raise NotImplementedError(
-        "checkpoint files are not ported yet: ROADMAP.md Queue 1 item 4")
+    from repro_torch import checkpoint
+    events: list[RoundEvent] = []
+    if state.pending is not None and flush:
+        _, events = collect(state)
+    if trainer is not None:
+        attach_trainer_state(state, trainer)
+    checkpoint.save(path, state.to_arrays())
+    return events
 
 
 def load_state(path: str) -> TaskState:
     """Inverse of :func:`save_state` (structure-free restore)."""
-    raise NotImplementedError(
-        "checkpoint files are not ported yet: ROADMAP.md Queue 1 item 4")
+    from repro_torch import checkpoint
+    return TaskState.from_arrays(checkpoint.restore_dict(path))
 
 
 # ---------------------------------------------------------------------------

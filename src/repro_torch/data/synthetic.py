@@ -7,8 +7,9 @@ difficulty bump). A CNN can learn it, accuracy ordering matches the
 paper's (CIFAR-like harder), and labels are explicit so the paper's
 non-iid partitions (Type 1/2/3) apply exactly.
 
-The language-model data of the reference (``make_lm_data``) waits for
-the federated LM task (ROADMAP.md Queue 1 item 7).
+``make_lm_data`` produces token streams from a class-conditional bigram
+process so LM architectures have a learnable federated task whose
+"label" histogram (bigram-bucket histogram) feeds the scheduler.
 """
 from __future__ import annotations
 
@@ -61,6 +62,34 @@ def make_classification_data(kind: str, n: int, seed: int = 0,
     images += rng.normal(scale=noise, size=images.shape).astype(np.float32)
     images = np.clip(images, 0.0, 1.0)
     return ClassificationData(images.astype(np.float32), labels, num_classes)
+
+
+@dataclasses.dataclass
+class LMData:
+    tokens: np.ndarray      # (N, S+1) int32; input = [:, :-1], target = [:, 1:]
+    labels: np.ndarray      # (N,) int32 latent class of each sequence
+    num_classes: int
+    vocab_size: int
+
+
+def make_lm_data(n: int, seq_len: int, vocab_size: int, seed: int = 0,
+                 num_classes: int = 10) -> LMData:
+    """Class-conditional deterministic-ish bigram streams.
+
+    Each latent class c has its own random permutation pi_c; sequences
+    follow t_{k+1} = pi_c(t_k) with occasional noise. The latent class is
+    the scheduler's 'label'."""
+    rng = np.random.default_rng(seed)
+    perms = np.stack([rng.permutation(vocab_size) for _ in range(num_classes)])
+    labels = rng.integers(0, num_classes, size=n).astype(np.int32)
+    toks = np.zeros((n, seq_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab_size, size=n)
+    noise = rng.uniform(size=(n, seq_len)) < 0.05
+    for k in range(seq_len):
+        nxt = perms[labels, toks[:, k]]
+        rand = rng.integers(0, vocab_size, size=n)
+        toks[:, k + 1] = np.where(noise[:, k], rand, nxt)
+    return LMData(toks, labels, num_classes, vocab_size)
 
 
 def histogram(labels: np.ndarray, num_classes: int) -> np.ndarray:

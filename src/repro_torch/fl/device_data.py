@@ -19,8 +19,9 @@ per-round host transfers (fl.round.make_fl_rounds_scan):
   (behavior b_t = 0) on the device, keeping at least one client per
   round (slot 0 always holds a real client).
 
-The language-model dataset of the reference waits for the federated LM
-task (ROADMAP.md Queue 1 item 7).
+:class:`DeviceLMDataset` and :func:`gather_lm_batches` are the token
+twins of the image dataset and gather, for the federated LM task
+(fl.transformer_task).
 """
 from __future__ import annotations
 
@@ -103,6 +104,42 @@ def gather_batches(data: DeviceDataset, rows, pos_u):
     imgs = data.images[flat].reshape(K, E, b, *data.images.shape[1:])
     labs = data.labels[flat].reshape(K, E, b)
     return {"images": imgs, "labels": labs}
+
+
+class DeviceLMDataset(NamedTuple):
+    """Token-sequence twin of :class:`DeviceDataset` for the federated
+    LM plane (fl.transformer_task): ``seqs`` holds packed next-token
+    sequences of length S+1 (input = ``[:, :-1]``, target = ``[:, 1:]``)
+    as ``data.synthetic.make_lm_data`` makes them. Pools and sizes mean
+    what they mean for images, so :func:`sample_positions` and
+    :func:`positions_to_indices` serve both planes."""
+    seqs: torch.Tensor       # (N, S+1) int64 packed token sequences
+    labels: torch.Tensor     # (N,) int64 latent class (partitioning only)
+    pools: torch.Tensor      # (n_clients, cap) int64 sample-index pools
+    sizes: torch.Tensor      # (n_clients,) int64 true pool sizes
+
+    @classmethod
+    def stage(cls, data, parts, device) -> "DeviceLMDataset":
+        """Stage ``data.synthetic.LMData`` (``.tokens``/``.labels``)."""
+        pools, sizes = dense_index_pools(parts)
+        as_i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64),
+                                           device=device)
+        return cls(as_i64(data.tokens), as_i64(data.labels), as_i64(pools),
+                   as_i64(sizes))
+
+    @property
+    def n_clients(self) -> int:
+        return self.pools.shape[0]
+
+
+def gather_lm_batches(data: DeviceLMDataset, rows, pos_u):
+    """LM batch assembly for ``make_fl_rounds_scan(gather_fn=...)``:
+    ``{"tokens": (K,E,b,S), "targets": (K,E,b,S)}`` int64 (the
+    models.transformer.loss_fn batch contract, next-token shifted)."""
+    idx = positions_to_indices(data.pools, data.sizes, rows, pos_u)
+    K, E, b = idx.shape
+    seqs = data.seqs[idx.reshape(-1)].reshape(K, E, b, data.seqs.shape[1])
+    return {"tokens": seqs[..., :-1], "targets": seqs[..., 1:]}
 
 
 def dropout_mask(mask_u, active, dropout_rate: float, arrival=None):

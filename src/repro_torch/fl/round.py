@@ -33,8 +33,8 @@ ordered by sorted name, which is JAX's pytree order for the reference's
 nested dicts (``b`` before ``w``), so the flattened (K, P) matrix has
 the reference's column order.
 
-Not ported yet (ROADMAP.md Queue 1): the client-sharded scan, the LM
-batch gather and the FedSGD step.
+Not ported yet (ROADMAP.md Queue 1): the client-sharded scan and the
+FedSGD step.
 """
 from __future__ import annotations
 
@@ -209,7 +209,8 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
                         server_lr: float = 1.0, dropout_rate: float = 0.0,
                         fused_quality: bool = True,
                         use_agg_kernel: bool = False,
-                        compression=None, server_opt=None, kernels=kops):
+                        compression=None, server_opt=None, kernels=kops,
+                        gather_fn: Callable | None = None):
     """Chunked multi-round function: S rounds per call.
 
     Returns ``chunk_fn(carry, data, schedule, base_key)`` where
@@ -251,8 +252,13 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
       (:mod:`repro_torch.kernels.ops`); a caller may hand in
       ``kernels.ops.PLAIN`` to hold the kernels against their plain
       versions on one device.
+    - ``gather_fn(data, rows, pos_u) -> batch dict``: batch assembly;
+      defaults to the image gather (:func:`device_data.gather_batches`).
+      The LM plane passes :func:`device_data.gather_lm_batches` with a
+      :class:`~repro_torch.fl.device_data.DeviceLMDataset`.
     """
     spec = CompressionSpec.parse(compression)
+    gather = device_data.gather_batches if gather_fn is None else gather_fn
     client_update = torch.func.vmap(_make_client_update(loss_fn, local_lr),
                                     in_dims=(None, 0))
 
@@ -272,7 +278,7 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
             mask = device_data.dropout_mask(
                 mask_u[t], active, dropout_rate,
                 arrival=None if arrival is None else arrival[t])
-            batch = device_data.gather_batches(data, rows, pos_u[t])
+            batch = gather(data, rows, pos_u[t])
             with conv_numerics():
                 deltas, losses = client_update(params, batch)
             w = schedule["weights"][t] * mask

@@ -32,8 +32,8 @@ schedules, masks and batches.
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without CUDA they raise. Pass ``device="cpu"`` to run on the CPU.
 
-Not ported yet (ROADMAP.md Queue 1): the mesh-sharded scan, device
-placement and trainer checkpoints.
+Not ported yet (ROADMAP.md Queue 1): the mesh-sharded scan and device
+placement.
 """
 from __future__ import annotations
 
@@ -82,6 +82,17 @@ def pool_from_partition(labels, parts, num_classes,
     scores[:, 8] = data_dist_score(H)
     costs = linear_cost(overall_score(scores), 2.0, 5.0, integer=True)
     return ClientPoolState(np.arange(n, dtype=np.int64), scores, H, costs)
+
+
+class _ReferenceKeys:
+    """Read-only view of an exported state under the port's flat names:
+    ``view["params/conv1.w"]`` is ``arrays["params/conv1/w"]``."""
+
+    def __init__(self, arrays: dict):
+        self.arrays = arrays
+
+    def __getitem__(self, key: str):
+        return self.arrays[key.replace(".", "/")]
 
 
 class _EvalCache:
@@ -449,6 +460,30 @@ class DeviceFLSim(_EvalCache):
         if (start_round + S - 1) % self.sim.eval_every == 0:
             eval_acc = self._enqueue_eval(self.params)
         return start_round, list(subsets), info, eval_acc
+
+    # -- server-state checkpointing (lifecycle format 4) ---------------------
+    def export_state(self) -> dict:
+        """Flat ``{path: numpy}`` snapshot of the server state (model
+        params + optimizer moments when a server optimizer is active);
+        rides ``TaskState.trainer_state`` in format-4 checkpoints
+        (``lifecycle.save_state(..., trainer=...)``). The keys are the
+        JAX package's: a flat parameter name's "." (the CNN's
+        ``conv1.w``) is the reference's nesting, "/", so either
+        package's trainer imports the other's export."""
+        from repro_torch import checkpoint
+        out = checkpoint.tree_to_arrays(self.params, "params")
+        if self.opt_state is not None:
+            out.update(checkpoint.tree_to_arrays(self.opt_state, "opt"))
+        return {k.replace(".", "/"): v for k, v in out.items()}
+
+    def import_state(self, arrays: dict) -> None:
+        """Inverse of :meth:`export_state` (lifecycle resume path)."""
+        from repro_torch import checkpoint
+        ref = _ReferenceKeys(arrays)
+        self.params = checkpoint.tree_from_arrays(self.params, ref, "params")
+        if self.opt_state is not None:
+            self.opt_state = checkpoint.tree_from_arrays(self.opt_state, ref,
+                                                         "opt")
 
     # -- per-round TrainerFn protocol (round_chunk == 1) ---------------------
     def __call__(self, rnd: int, subset, weights) -> tuple:

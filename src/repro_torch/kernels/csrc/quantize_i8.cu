@@ -11,7 +11,14 @@
 //   and values 0. The ragged tail is read as zeros (they cannot raise
 //   amax and are not written). Every step is one correctly rounded f32
 //   operation, so the result equals the plain version bit for bit; this
-//   file must not be built with --use_fast_math.
+//   file must not be built with --use_fast_math. Non-finite input keeps
+//   the JAX package's semantics: the chunk max propagates NaN (as jnp.max
+//   does), so a chunk holding a NaN gets scale NaN and values 0 (NaN > 0
+//   is false); a chunk holding +-inf gets scale inf, its finite values
+//   quantize to 0 and its +-inf values give inf / inf = NaN, which casts
+//   to 0 as XLA's float-to-int8 conversion does. (A NaN scale is the
+//   canonical NaN; only its payload bits may differ from the plain
+//   version's.)
 // - kernels/compression.py::dequantize_i8: values (K, P) int8 and scales
 //   -> (K, P) f32, float(v) * scale of its chunk, one rounding.
 //
@@ -36,6 +43,14 @@ constexpr int kMaxBlocks = 4096;
 // fl(1/127) = 0x3C010204, spelled as bits so no compiler rounds it again.
 #define INV_127 __uint_as_float(0x3C010204u)
 
+// max that keeps NaN, as jnp.max does (fmaxf drops it): one max.NaN
+// instruction (sm_80 and later), as cheap as fmaxf
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __global__ void __launch_bounds__(kThreads)
 quantize_i8_kernel(const float* __restrict__ x, signed char* __restrict__ vals,
                    float* __restrict__ scales, long long P, int chunk, long long nc,
@@ -48,15 +63,17 @@ quantize_i8_kernel(const float* __restrict__ x, signed char* __restrict__ vals,
   const int n = rest < chunk ? (int)rest : chunk;
   const float* xr = x + row * P + c0;
   float amax = 0.f;
-  for (int i = lane; i < n; i += 32) amax = fmaxf(amax, fabsf(xr[i]));
+  for (int i = lane; i < n; i += 32) amax = nan_max(amax, fabsf(xr[i]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float scale = __fmul_rn(amax, INV_127);
   signed char* vr = vals + row * P + c0;
   for (int i = lane; i < n; i += 32) {
-    float q = 0.f;
-    if (scale > 0.f) q = fminf(fmaxf(rintf(__fdiv_rn(xr[i], scale)), -127.f), 127.f);
+    // round half to even into an int: NaN (inf / inf) converts to 0, as
+    // XLA's cast does; the clip is then on integers
+    int q = 0;
+    if (scale > 0.f) q = min(max(__float2int_rn(__fdiv_rn(xr[i], scale)), -127), 127);
     vr[i] = (signed char)q;
   }
   if (lane == 0) scales[g] = scale;  // g == row * nc + chunk index

@@ -82,7 +82,13 @@ def quantize_i8_ref(x: torch.Tensor, chunk: int = 256):
     scales (K, ceil(P/chunk)) f32)`` with scale = amax(|chunk|) · fl(1/127)
     (0 for an all-zero chunk) and values = round_half_even(x / scale), a
     true division, clipped to ±127 (0 where the scale is 0). The ragged
-    tail is zero-padded."""
+    tail is zero-padded.
+
+    Non-finite input as in the JAX package: the max keeps NaN, so a chunk
+    holding a NaN gets scale NaN and values 0; a chunk holding ±inf gets
+    scale inf, and its ±inf values (inf / inf = NaN) become 0, the value
+    of XLA's NaN-to-int8 cast. That 0 is spelled out here, because
+    torch's own cast of NaN to int8 is not defined."""
     K, P = x.shape
     xc, _ = _chunked(x.to(torch.float32), chunk)
     # a Python scalar is rounded to the tensor's f32 before the multiply
@@ -90,7 +96,7 @@ def quantize_i8_ref(x: torch.Tensor, chunk: int = 256):
     pos = (scales > 0.0)[:, :, None]
     safe = torch.where(pos, scales[:, :, None], torch.ones_like(xc[:, :, :1]))
     q = torch.where(pos, torch.round(xc / safe), torch.zeros_like(xc))
-    vals = q.clamp(-127.0, 127.0).to(torch.int8)
+    vals = q.clamp(-127.0, 127.0).nan_to_num(nan=0.0).to(torch.int8)
     return vals.reshape(K, -1)[:, :P], scales
 
 

@@ -195,6 +195,44 @@ def test_quantize_dequantize_plain_exact(K, P, chunk, kind):
     np.testing.assert_array_equal(t2n(d), np.asarray(pd))
 
 
+@pytest.mark.parametrize("kind", ["nan", "posinf", "neginf", "mixed"])
+@pytest.mark.parametrize("K,P,chunk", [(4, 600, 256), (3, 1000, 100)])
+def test_quantize_plain_keeps_non_finite_as_jax(K, P, chunk, kind):
+    """Chunks holding NaN or +-inf, against jit(oracle) and the Pallas
+    kernel (interpret mode), exactly (NaN compared as NaN): a NaN chunk
+    gets scale NaN and values 0; a +-inf chunk gets scale inf, its
+    finite values 0 and its +-inf values 0 (XLA's NaN-to-int8 cast).
+    Dequantize and the int8 aggregate carry the NaN through."""
+    x = codec_input(K, P, "normal", seed=4)
+    bad = {"nan": [np.nan], "posinf": [np.inf], "neginf": [-np.inf],
+           "mixed": [np.nan, np.inf, -np.inf]}[kind]
+    for i, v in enumerate(bad * K):                 # one bad chunk a row,
+        x[i % K, (i * 131 + 7) % P] = v             # others left finite
+    v, s = ref.quantize_i8_ref(torch.as_tensor(x), chunk)
+    jv, js = jax.jit(jref.quantize_i8_ref, static_argnums=1)(
+        jnp.asarray(x), chunk)
+    pv, ps = pallas.quantize_i8(jnp.asarray(x), chunk=chunk, interpret=True)
+    for ev, es in ((jv, js), (pv, ps)):
+        np.testing.assert_array_equal(t2n(v), np.asarray(ev))
+        np.testing.assert_array_equal(t2n(s), np.asarray(es))
+    sn = t2n(s)
+    assert not np.isfinite(sn).all() and np.isfinite(sn).any()
+    for row, col in zip(*np.nonzero(~np.isfinite(sn))):
+        assert (t2n(v)[row, col * chunk:(col + 1) * chunk] == 0).all()
+    d = ref.dequantize_i8_ref(v, s, chunk)
+    jd = jax.jit(jref.dequantize_i8_ref, static_argnums=2)(
+        jnp.asarray(t2n(v)), jnp.asarray(sn), chunk)
+    np.testing.assert_array_equal(t2n(d), np.asarray(jd))
+    assert np.isnan(t2n(d)).any()
+    w = torch.full((K,), 1.0 / K)
+    agg = ref.fedavg_agg_quality_i8_ref(v, s, w, chunk)
+    jagg = jax.jit(jref.fedavg_agg_quality_i8_ref, static_argnums=3)(
+        jnp.asarray(t2n(v)), jnp.asarray(sn), jnp.asarray(t2n(w)), chunk)
+    for a, b in zip(agg, jagg):
+        np.testing.assert_array_equal(np.isnan(t2n(a)), np.isnan(
+            np.asarray(b)))
+
+
 def test_quantize_scale_is_reciprocal_multiply():
     """The jitted oracle's scale is amax * fl(1/127) to the bit, as the
     port's; the port's values are round_half_even of a true division."""

@@ -14,7 +14,9 @@ sum and division as the plain version does. So are the codec kernels
 ``topk_sparsify`` (values and indices), ``quantize_i8`` (values and
 scales; one correctly rounded f32 operation a step) and
 ``dequantize_i8``; ``fedavg_agg_quality_i8`` is held as
-``fedavg_agg_quality`` in f32. ``fedavg_agg`` sums each column's K
+``fedavg_agg_quality`` in f32. On chunks holding NaN or ±inf the codec
+kernels keep the plain version's (the JAX package's) semantics: values
+exact, scales and dequantized values equal with NaN compared as NaN. ``fedavg_agg`` sums each column's K
 terms in one fixed order with fmaf, the plain version through a matmul:
 f32 within rtol 1e-5 / atol 1e-5 (K up to 3,000), bf16 within one bf16
 ulp; ``fedavg_agg_tree`` runs the same per-column loop over every leaf
@@ -25,7 +27,10 @@ bytes exact; the first round's payloads are equal and only the f32 sums
 of the aggregate differ, so a later round may move an int8 value by a
 step or swap a near-tie at the top-k threshold: at most 0.1 % of the
 parameters beyond rtol 1e-4 / atol 1e-5, none beyond half the chunk's
-largest parameter change.
+largest parameter change. The device batch's ``skip_unaffordable``
+rule picks what the numpy batch picks (integer costs, so its f32 sums
+are exact), and a federated LM run resumed from a checkpoint repeats
+the uninterrupted rounds and adapters bit for bit.
 
 The serve path's kernels. ``rmsnorm``: f32 within rtol = atol = 2e-5
 (sum-of-squares order and ``rsqrtf``); bf16 within two bf16 ulps (rtol
@@ -619,6 +624,33 @@ def test_device_batch_equals_numpy_at_intake_shape(cuda, integer_cost):
     np.testing.assert_array_equal(got[2], exp[2])
 
 
+@pytest.mark.parametrize("seed,n,tasks", [(0, 300, 5), (1, 5000, 3),
+                                           (2, 1, 2)])
+def test_device_skip_unaffordable_equals_numpy(cuda, seed, n, tasks):
+    """The skip rule on the card: integer costs make its f32 sums exact,
+    so it picks what the f64 numpy batch picks."""
+    rng = np.random.default_rng(seed)
+    s, c = rng.uniform(1, 10, n), np.rint(rng.uniform(3, 25, n))
+    valid = rng.uniform(size=(tasks, n)) < 0.7
+    budgets = np.linspace(40.0, 3000.0, tasks)
+    got = engine.greedy_knapsack_batch(s, c, budgets, valid, True,
+                                       backend="device", device=cuda)
+    exp = engine.greedy_knapsack_batch(s, c, budgets, valid, True,
+                                       backend="numpy")
+    for a, b in zip(got, exp):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_skip_unaffordable_at_intake_shape(cuda):
+    args = intake_args(True)
+    got = engine.greedy_knapsack_batch(*args, skip_unaffordable=True,
+                                       backend="device", device=cuda)
+    exp = engine.greedy_knapsack_batch(*args, skip_unaffordable=True,
+                                       backend="numpy")
+    for a, b in zip(got, exp):
+        np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the fleet path
 # ---------------------------------------------------------------------------
@@ -741,6 +773,57 @@ def test_int8_codec_kernels_match_plain(cuda, K, P, chunk, kind):
     if kind == "zeros" and P >= 1024:
         assert (s[:, 0] == 0).all()
         assert int(v[0, -2]) == 127 and int(v[0, -1]) == -127
+
+
+def non_finite_input(K, P, chunk, kind, cuda):
+    """Unit normals with a NaN in every third chunk (``nan``), or +inf in
+    every third chunk and -inf in the next (``inf``)."""
+    x = torch.randn(K, P, generator=torch.Generator(device=cuda)
+                    .manual_seed(K * 31 + P), device=cuda)
+    nc = -(-P // chunk)
+    for c in range(0, nc, 3):
+        if kind == "nan":
+            x[:, min(c * chunk + 5, P - 1)] = float("nan")
+        else:
+            x[:, min(c * chunk + 5, P - 1)] = float("inf")
+            if c + 1 < nc:
+                x[:, min((c + 1) * chunk + 9, P - 1)] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+@pytest.mark.parametrize("chunk", [100, 256])
+@pytest.mark.parametrize("K,P", [(1, 7), (13, 4097), (13, MAIN_P)])
+def test_int8_codec_kernels_keep_non_finite(cuda, K, P, chunk, kind):
+    """The JAX package's semantics, as the plain version has them: a NaN
+    chunk gets scale NaN and values 0, a +-inf chunk scale inf and
+    values 0; dequantize and the int8 aggregate carry the NaN. Values
+    exact, scales and dequantized values equal with NaN as NaN, the
+    aggregate within the f32 tolerance with NaN where the plain version
+    has it."""
+    x = non_finite_input(K, P, chunk, kind, cuda)
+    v, s = ops.quantize_i8(x, chunk)
+    ev, es = ref.quantize_i8_ref(x, chunk)
+    d = ops.dequantize_i8(v, s, chunk)
+    w = torch.softmax(torch.arange(K, dtype=torch.float32, device=cuda), 0)
+    agg = ops.fedavg_agg_quality_i8(v, s, w, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(v, ev)
+    torch.testing.assert_close(s, es, rtol=0, atol=0, equal_nan=True)
+    bad = ~torch.isfinite(s)
+    assert bool(bad[:, 0].all())
+    if kind == "nan":
+        assert bool(s[bad].isnan().all())
+    else:
+        assert bool((s[bad] == float("inf")).all())
+    cols = torch.arange(P, device=cuda) // chunk
+    assert not bool(v[bad[:, cols]].any())
+    torch.testing.assert_close(d, ref.dequantize_i8_ref(ev, es, chunk),
+                               rtol=0, atol=0, equal_nan=True)
+    eagg = ref.fedavg_agg_quality_i8_ref(ev, es, w, chunk)
+    for a, b in zip(agg, eagg):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
 
 
 def test_codec_kernels_repeat_and_refuse_bad_inputs(cuda):
@@ -1436,3 +1519,49 @@ def test_reduced_ssm_serve_kernels_vs_plain(cuda, arch, dtype):
         assert counts == {"mlstm_scan": 3, "rmsnorm": 5}
     tol = 1e-4 if dtype == "float32" else 5e-2
     torch.testing.assert_close(runs[0], runs[1], rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint resume on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("comp", [None, "topk:0.25+int8"])
+def test_resume_reproduces_rounds_on_the_card(cuda, comp, tmp_path):
+    """The federated LM task (reduced) saved mid-run with its trainer
+    state and resumed in a fresh trainer repeats the uninterrupted
+    rounds, and ends at the same adapters, bit for bit."""
+    from repro_torch.core import FLServiceProvider, lifecycle
+    from repro_torch.fl.transformer_task import make_transformer_fl
+
+    def bundle():
+        b = make_transformer_fl(n_clients=10, n_train=100, n_test=30,
+                                seq_len=8, compression=comp,
+                                server_opt="fedadam", device=cuda)
+        task = lifecycle.TaskRequest(budget=200.0, subset_size=4,
+                                     subset_delta=2, x_star=2, max_periods=3,
+                                     max_rounds=6, round_chunk=1, seed=0,
+                                     compression=comp)
+        return FLServiceProvider(b["pool"]), b["trainer"], task
+
+    sp, ref_trainer, task = bundle()
+    _, ref_events = lifecycle.drain(sp, lifecycle.submit(sp, task),
+                                    ref_trainer)
+    sp, trainer, task = bundle()
+    state, events = lifecycle.submit(sp, task), []
+    while len(events) < 3:
+        state, ev = lifecycle.step(sp, state, trainer)
+        events += ev
+    path = str(tmp_path / "mid.ckpt")
+    events += lifecycle.save_state(path, state, flush=True, trainer=trainer)
+    sp, fresh, _ = bundle()
+    state = lifecycle.load_state(path)
+    assert lifecycle.restore_trainer_state(state, fresh)
+    assert all(t.device.type == "cuda" for t in fresh.params.values())
+    _, post = lifecycle.drain(sp, state, fresh)
+    events += post
+    assert [(e.round_index, e.subset, e.nid, e.metrics) for e in events] == \
+        [(e.round_index, e.subset, e.nid, e.metrics) for e in ref_events]
+    for k, x in ref_trainer.params.items():
+        assert torch.equal(x, fresh.params[k]), k
+    assert torch.equal(ref_trainer.opt_state["count"],
+                       fresh.opt_state["count"])

@@ -130,18 +130,17 @@ def test_aggregate_seam_takes_plain_version(chunk_results):
 
 
 def test_unported_options_raise():
-    """Compression, server optimizers, the two-pass aggregate and
-    fault-mode arrival masks are ported; the one option of the
-    reference's chunk function still missing is the LM batch gather
-    (``gather_fn``, ROADMAP.md Queue 1 item 7), which the signature
-    refuses; a bad codec spec is refused when the chunk function is
-    built."""
+    """Compression, server optimizers, the two-pass aggregate,
+    fault-mode arrival masks and the batch gather (``gather_fn``, the LM
+    plane's ``gather_lm_batches``: tests/test_torch_transformer_task.py)
+    are ported, so every option of the reference's chunk function builds
+    a chunk function; a bad codec spec is refused when the chunk function
+    is built."""
     loss = lambda p, b: cnn.loss_fn(cnn.MNIST_CNN, p, b)
-    with pytest.raises(TypeError, match="gather_fn"):
-        make_fl_rounds_scan(loss, gather_fn=lambda d, r, p: None)
     for kw in ({}, {"compression": "int8"}, {"fused_quality": False},
                {"compression": "topk:0.05+int8",
-                "server_opt": optim.fedadam(0.01)}):
+                "server_opt": optim.fedadam(0.01)},
+               {"gather_fn": device_data.gather_lm_batches}):
         assert callable(make_fl_rounds_scan(loss, **kw))
     with pytest.raises(ValueError, match="compression"):
         make_fl_rounds_scan(loss, compression="gzip")

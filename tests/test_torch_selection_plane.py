@@ -337,13 +337,37 @@ class TestGreedyBatch:
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
 
+    @pytest.mark.parametrize("seed,n,with_valid", [
+        (2, 100, True), (3, 1000, True), (4, 5000, False), (7, 1, True)])
+    def test_device_skip_unaffordable_matches_numpy(self, seed, n,
+                                                    with_valid):
+        """The skip rule on the device (integer costs: its f32 sums are
+        exact) picks what the numpy backend and the reference's jax
+        backend pick."""
+        s, c, budgets, valid = knapsack(seed, n, 4)
+        v = valid if with_valid else None
+        want = engine.greedy_knapsack_batch(s, c, budgets, v, True,
+                                            backend="numpy")
+        masks, ts, tc = engine.greedy_knapsack_batch(
+            s, c, budgets, v, True, backend="device", device=CPU)
+        np.testing.assert_array_equal(masks, want[0])
+        np.testing.assert_array_equal(ts, want[1])
+        np.testing.assert_array_equal(tc, want[2])
+        r_masks = ref_engine.greedy_knapsack_batch(s, c, budgets, v, True,
+                                                   backend="jax")[0]
+        np.testing.assert_array_equal(masks, r_masks)
+        # the skip rule takes a superset of the paper's prefix
+        prefix = engine.greedy_knapsack_batch(s, c, budgets, v,
+                                              backend="device", device=CPU)[0]
+        assert (masks >= prefix).all()
+
     def test_device_refusals(self):
         s, c, budgets, valid = knapsack(6, 50, 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.greedy_knapsack_batch(s, c, budgets, valid, True,
-                                         backend="device", device=CPU)
         with pytest.raises(ValueError, match="'device'"):
             engine.greedy_knapsack_batch(s, c, budgets, backend="jax")
+        with pytest.raises(ValueError, match="'device'"):
+            engine.greedy_knapsack_batch(s, c, budgets, valid, True,
+                                         backend="tpu")
 
     def test_select_pools_batch_serves_tasks(self):
         """The multi-tenant intake raised before the batch was ported."""

@@ -133,13 +133,14 @@ def test_entry_points_default_to_cuda():
                                      n_train=40, n_test=10)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     """What this port still cuts raises, naming its ROADMAP item: the
-    mesh and the checkpoint files. A mesh with compression or a server
-    optimizer is refused as the reference refuses it. Compression and
-    server optimizers alone build a trainer. (The host-loop plane, fault
-    plans and arrival masks run: tests/test_torch_host_plane.py and
-    tests/test_torch_faults.py.)"""
+    mesh. A mesh with compression or a server optimizer is refused as the
+    reference refuses it. Compression and server optimizers alone build a
+    trainer, and the checkpoint files, once cut, now save and load.
+    (The host-loop plane, fault plans and arrival masks run:
+    tests/test_torch_host_plane.py and tests/test_torch_faults.py; the
+    checkpoint files: tests/test_torch_checkpoint.py.)"""
     data = make_classification_data("mnist", 40, seed=0)
     parts = partition_labels(data.labels, 4, "type2", 10, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -153,10 +154,10 @@ def test_unported_paths_raise():
                                  device="cpu", compression="topk:0.1+int8",
                                  server_opt="fedyogi")
     assert sorted(sim.opt_state) == ["count", "m", "v"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lifecycle.save_state("unused", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lifecycle.load_state("unused")
+    state = lifecycle.TaskState(task=lifecycle.TaskRequest(budget=10.0))
+    path = str(tmp_path / "state.ckpt")
+    assert lifecycle.save_state(path, state) == []
+    assert lifecycle.load_state(path).task.budget == 10.0
 
 
 _IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
@@ -165,6 +166,7 @@ _IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 def test_port_never_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     for f in files:
         assert not _IMPORT_RE.search(f.read_text()), f
     blocker = (
