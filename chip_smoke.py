@@ -52,7 +52,9 @@ plain PyTorch version. Phases, one line each:
     within f32 tolerance, at the compressed loop's shapes and ragged
     ones (chunks 100-512, zero chunks, saturation, ties, k from 1 to P;
     for the top-k also all-equal magnitudes, NaN and +-inf, one row over
-    many blocks, odd P);
+    many blocks, odd P), and ``quantize_i8`` / ``dequantize_i8`` on views
+    whose data starts 0-12 / 0-15 bytes off, at P of each alignment
+    class and chunks 1-512;
 12. the compressed update plane: the service loop at CIFAR_CNN width
     with ``compression="int8"``, then ``"topk:0.05+int8"`` with the
     FedAdam server, 16 rounds each; every codec kernel launches once a
@@ -118,7 +120,8 @@ plain PyTorch version. Phases, one line each:
     versions with a NaN in some chunks and +-inf in others, at the
     compressed loop's shape and a ragged one, chunks 100-512: values and
     scales equal (NaN compared as NaN), a NaN chunk with scale NaN and
-    values 0, a +-inf chunk with scale inf and values 0;
+    values 0, a +-inf chunk with scale inf and values 0; and phase 11's
+    misaligned views with NaN or +-inf chunks;
 26. period-checkpoint resume on the compressed plane: the CIFAR_CNN
     device plane with ``"topk:0.05+int8"`` and FedAdam at phase 12's
     size, 16 rounds uninterrupted, and the same run saved after round 8
@@ -1654,6 +1657,43 @@ def codec_case(K, P, kind, g):
     return x
 
 
+# P of each alignment class of a row (P = 0, 2 and 1 or 3 mod 4, and
+# P below every chunk), with the main path's two shapes
+ALIGN_SHAPES = ((5, 7), (5, 100), (5, 4096), (5, 4098), (5, 4097),
+                (MAIN_K, MAIN_TOPK), (MAIN_K, MAIN_P))
+ALIGN_CHUNKS = (1, 100, 128, 256, 512)
+
+
+def offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts ``offset`` elements into a fresh
+    buffer, so its ``data_ptr`` is off the allocator's alignment."""
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def codec_at_offsets(x, chunk, what, same) -> int:
+    """``quantize_i8`` of x at storage offsets of 0-3 f32 elements and
+    ``dequantize_i8`` of its values at offsets of 0-15 bytes, each held to
+    the plain version by ``same``. Returns the number of calls checked."""
+    from repro_torch.kernels import ops, ref
+    ev, es = ref.quantize_i8_ref(x, chunk)
+    ed = ref.dequantize_i8_ref(ev, es, chunk)
+    for off in range(4):
+        v, s = ops.quantize_i8(offset_view(x, off), chunk)
+        torch.cuda.synchronize()
+        check(torch.equal(v, ev) and same(s, es),
+              f"quantize_i8 {what}, x {4 * off} bytes off: values and "
+              f"scales equal the plain version")
+    for off in range(16):
+        d = ops.dequantize_i8(offset_view(ev, off), es, chunk)
+        torch.cuda.synchronize()
+        check(same(d, ed), f"dequantize_i8 {what}, values {off} bytes "
+                           f"off: equal to the plain version")
+    return 20
+
+
 def codec_kernels_vs_plain() -> dict:
     """The four codec kernels against their plain versions on the card:
     top-k, quantize and dequantize exact; the int8 aggregate within the
@@ -1723,6 +1763,12 @@ def codec_kernels_vs_plain() -> dict:
                   f"topk_sparsify K={K} P={P} k={k} {kind}: values (bit for "
                   f"bit) and indices equal the plain version")
             n["topk"] += 1
+    n["aligned"] = 0
+    for K, P in ALIGN_SHAPES:
+        x = codec_case(K, P, "normal", g)
+        for chunk in ALIGN_CHUNKS:
+            n["aligned"] += codec_at_offsets(x, chunk, f"K={K} P={P} "
+                                             f"chunk={chunk}", torch.equal)
     x = codec_case(MAIN_K, MAIN_P, "ties", g)
     first = ops.topk_sparsify(x, MAIN_TOPK)
     again = ops.topk_sparsify(x, MAIN_TOPK)
@@ -1739,7 +1785,11 @@ def codec_kernels_vs_plain() -> dict:
               f"repeat bit-identical; quantize_i8 and "
               f"dequantize_i8 bit-equal, fedavg_agg_quality_i8 within rtol "
               f"1e-5, in {n['quant']} cases (chunks 100, 128, 256, 512; zero "
-              f"chunks keep scale 0, +-amax saturate at +-127); max |err| "
+              f"chunks keep scale 0, +-amax saturate at +-127), and "
+              f"bit-equal in {n['aligned']} calls on misaligned views (x "
+              f"0-12 bytes and the int8 values 0-15 bytes off; K x P in "
+              f"{', '.join(f'{k}x{p}' for k, p in ALIGN_SHAPES)}; chunks "
+              f"{', '.join(map(str, ALIGN_CHUNKS))}); max |err| "
               f"of fedavg_agg_quality_i8 at 13x{MAIN_P}: "
               f"{err['fedavg_agg_quality_i8']:.3e}")
     return err
@@ -2491,14 +2541,11 @@ def non_finite_case(K, P, chunk, kind, g):
     (``inf``); the other chunks stay finite."""
     x = torch.randn(K, P, generator=g, device="cuda")
     nc = -(-P // chunk)
-    for c in range(0, nc, 3):
-        col = min(c * chunk + 5, P - 1)
-        if kind == "nan":
-            x[:, col] = float("nan")
-        else:
-            x[:, col] = float("inf")
-            if c + 1 < nc:
-                x[:, min((c + 1) * chunk + 9, P - 1)] = float("-inf")
+    c = torch.arange(0, nc, 3, device="cuda")
+    x[:, (c * chunk + 5).clamp(max=P - 1)] = float(kind)
+    if kind == "inf":
+        c = c[c + 1 < nc]
+        x[:, ((c + 1) * chunk + 9).clamp(max=P - 1)] = float("-inf")
     return x
 
 
@@ -2548,13 +2595,24 @@ def codec_non_finite() -> int:
                     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
                                                equal_nan=True)
                 n += 1
+    aligned = 0
+    for K, P in ALIGN_SHAPES:
+        for kind in ("nan", "inf"):
+            for chunk in ALIGN_CHUNKS:
+                x = non_finite_case(K, P, chunk, kind, g)
+                aligned += codec_at_offsets(
+                    x, chunk, f"K={K} P={P} chunk={chunk} {kind}", nan_equal)
     phase(25, f"int8 codec kernels on non-finite chunks vs plain on the "
               f"card: {n} cases (K x P in 13x{MAIN_P} and 3x100003; chunks "
               f"100, 128, 256, 512; NaN in every third chunk, or +inf and "
               f"-inf in two of every three): quantize_i8 values and scales "
               f"equal (NaN as NaN; NaN chunks scale NaN, +-inf chunks scale "
               f"inf, values 0), dequantize_i8 equal, fedavg_agg_quality_i8 "
-              f"within rtol 1e-5 with NaN where the plain version has it")
+              f"within rtol 1e-5 with NaN where the plain version has it; "
+              f"quantize_i8 and dequantize_i8 equal, NaN as NaN, in "
+              f"{aligned} calls on misaligned views (x 0-12 bytes and the "
+              f"int8 values 0-15 bytes off) over phase 11's shapes and "
+              f"chunks, each with NaN or +-inf chunks")
     return n
 
 

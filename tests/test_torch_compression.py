@@ -195,6 +195,53 @@ def test_quantize_dequantize_plain_exact(K, P, chunk, kind):
     np.testing.assert_array_equal(t2n(d), np.asarray(pd))
 
 
+def offset_view(x, offset):
+    """x as a contiguous tensor ``offset`` elements into a larger buffer
+    (a nonzero storage offset, its data_ptr off the buffer's alignment)."""
+    x = torch.as_tensor(x)
+    buf = torch.zeros(offset + x.numel(), dtype=x.dtype)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    assert view.storage_offset() == offset and view.is_contiguous()
+    return view
+
+
+# K, P, chunk, storage offset of x (f32 elements), of the int8 values
+# (bytes), kind: P = 0, 2 and 1 or 3 mod 4, P below the chunk, both main
+# path widths, chunks of 1 to 512
+OFFSET_CASES = [(3, 7, 256, 1, 1, "normal"), (3, 100, 128, 3, 7, "zeros"),
+                (5, 4096, 512, 2, 12, "normal"), (5, 4098, 256, 1, 2, "ties"),
+                (5, 4097, 100, 3, 15, "normal"), (5, 4097, 1, 2, 5, "normal"),
+                (4, 1030, 128, 2, 3, "zeros"), (4, 600, 32, 1, 11, "ties"),
+                (2, 53_540, 256, 1, 4, "normal"),
+                (2, 1_070_794, 256, 3, 9, "normal"),
+                (3, 1000, 100, 2, 6, "nan"), (4, 600, 256, 3, 13, "inf")]
+
+
+@pytest.mark.parametrize("K,P,chunk,x_off,v_off,kind", OFFSET_CASES)
+def test_quantize_dequantize_plain_exact_at_storage_offsets(
+        K, P, chunk, x_off, v_off, kind):
+    """The plain versions on views at a storage offset (the inputs that
+    the card tests give the kernels at misaligned addresses) equal
+    jit(oracle) bit for bit, NaN as NaN."""
+    x = codec_input(K, P, "normal" if kind in ("nan", "inf") else kind,
+                    seed=3)
+    if kind == "nan":
+        x[:, 5::97] = np.nan
+    elif kind == "inf":
+        x[:, 5::97] = np.inf
+        x[:, 300::389] = -np.inf
+    v, s = ref.quantize_i8_ref(offset_view(x, x_off), chunk)
+    jv, js = jax.jit(jref.quantize_i8_ref, static_argnums=1)(
+        jnp.asarray(x), chunk)
+    np.testing.assert_array_equal(t2n(v), np.asarray(jv))
+    np.testing.assert_array_equal(t2n(s), np.asarray(js))
+    d = ref.dequantize_i8_ref(offset_view(v, v_off), s, chunk)
+    jd = jax.jit(jref.dequantize_i8_ref, static_argnums=2)(jv, js, chunk)
+    np.testing.assert_array_equal(t2n(d), np.asarray(jd))
+    assert np.isnan(t2n(s)).any() == (kind == "nan")
+
+
 @pytest.mark.parametrize("kind", ["nan", "posinf", "neginf", "mixed"])
 @pytest.mark.parametrize("K,P,chunk", [(4, 600, 256), (3, 1000, 100)])
 def test_quantize_plain_keeps_non_finite_as_jax(K, P, chunk, kind):

@@ -826,6 +826,102 @@ def test_int8_codec_kernels_keep_non_finite(cuda, K, P, chunk, kind):
                                    equal_nan=True)
 
 
+def offset_view(t, offset):
+    """A contiguous copy of t that starts ``offset`` elements into a fresh
+    buffer, so its ``data_ptr`` is off the allocator's alignment."""
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def nan_equal(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.where(a.isnan(), 0, a), torch.where(b.isnan(), 0, b))
+
+
+def mixed_input(K, P, chunk, cuda):
+    """Unit normals with a NaN in every fifth chunk, +inf and -inf in the
+    next two, and the chunk after them all zero; the rest finite."""
+    x = torch.randn(K, P, generator=torch.Generator(device=cuda)
+                    .manual_seed(K * 7 + P + chunk), device=cuda)
+    c = torch.arange(0, -(-P // chunk), device=cuda)
+    first = (c * chunk + chunk // 2).clamp(max=P - 1)
+    for r, val in enumerate((float("nan"), float("inf"), float("-inf"))):
+        x[:, first[c % 5 == r]] = val
+    for z in c[c % 5 == 3].tolist()[:64]:
+        x[:, z * chunk:(z + 1) * chunk] = 0.0
+    return x
+
+
+# P of each alignment class of a row (P = 0, 2 and 1 or 3 mod 4), P below
+# every chunk, and the main path's two widths
+ALIGN_P = [7, 100, 4096, 4098, 4097, MAIN_TOPK, MAIN_P]
+
+
+@pytest.mark.parametrize("chunk", [1, 100, 128, 256, 512])
+@pytest.mark.parametrize("P", ALIGN_P)
+def test_quantize_i8_at_any_alignment(cuda, P, chunk):
+    """x at storage offsets of 0-3 f32 elements, so its rows start at every
+    4-byte class mod 16: values and scales equal the plain version (NaN
+    as NaN), whichever access width each chunk's address allows."""
+    K = 13 if P >= MAIN_TOPK else 5
+    x = mixed_input(K, P, chunk, cuda)
+    ev, es = ref.quantize_i8_ref(x, chunk)
+    for off in range(4):
+        xv = offset_view(x, off)
+        assert xv.data_ptr() % 16 == 4 * off % 16
+        v, s = ops.quantize_i8(xv, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(v, ev) and nan_equal(s, es), off
+
+
+@pytest.mark.parametrize("chunk", [1, 100, 128, 256, 512])
+@pytest.mark.parametrize("P", ALIGN_P)
+def test_dequantize_i8_at_any_alignment(cuda, P, chunk):
+    """The int8 values at storage offsets of 0-15 bytes: equal to the
+    plain version, NaN as NaN."""
+    K = 13 if P >= MAIN_TOPK else 5
+    ev, es = ref.quantize_i8_ref(mixed_input(K, P, chunk, cuda), chunk)
+    ed = ref.dequantize_i8_ref(ev, es, chunk)
+    for off in range(16):
+        vv = offset_view(ev, off)
+        assert vv.data_ptr() % 16 == off
+        d = ops.dequantize_i8(vv, es, chunk)
+        torch.cuda.synchronize()
+        assert nan_equal(d, ed), off
+
+
+@pytest.mark.parametrize("P", [MAIN_TOPK, MAIN_P])
+def test_int8_codec_kernels_replay_in_a_cuda_graph(cuda, P):
+    """Captured once at a main-path shape, replayed on new inputs in the
+    same memory: each replay equals an uncaptured call and the plain
+    version."""
+    K, chunk = 13, 256
+    x = codec_input(K, P, "normal", cuda)
+    v0, s0 = ops.quantize_i8(x, chunk)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.quantize_i8(x, chunk)
+        ops.dequantize_i8(v0, s0, chunk)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        v, s = ops.quantize_i8(x, chunk)
+        d = ops.dequantize_i8(v, s, chunk)
+    for kind in ("ties", "zeros", "normal"):
+        x.copy_(codec_input(K, P, kind, cuda) * 3.0)
+        graph.replay()
+        ev, es = ops.quantize_i8(x, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(v, ev) and torch.equal(s, es)
+        assert torch.equal(d, ops.dequantize_i8(ev, es, chunk))
+        pv, ps = ref.quantize_i8_ref(x, chunk)
+        assert torch.equal(v, pv) and torch.equal(s, ps)
+        assert torch.equal(d, ref.dequantize_i8_ref(pv, ps, chunk))
+
+
 def test_codec_kernels_repeat_and_refuse_bad_inputs(cuda):
     x = codec_input(13, 100_003, "ties", cuda)
     a, b = ops.topk_sparsify(x, 5000), ops.topk_sparsify(x, 5000)

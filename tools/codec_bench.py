@@ -14,6 +14,13 @@ normals, chunks of 256):
 
 - ``quantize_i8`` of the deltas (13 x 1,070,794) and of their top-k
   values (13 x 53,540);
+- ``quantize_i8`` of the deltas as a view 4 bytes into a buffer, so no
+  row starts 8-byte aligned (the narrowest access a row can take; its
+  outputs hash as the aligned call's);
+- ``quantize_i8`` of four times the deltas' rows (52 x 1,070,794, 222
+  MB, which no L2 holds across calls): a quarter of its time is the
+  streaming cost of one call at the deltas' shape, with the fixed cost
+  of a launch spread over four times the bytes;
 - ``dequantize_i8`` of the top-k values' payload (13 x 53,540);
 
 and prints a hash of each kernel's outputs on those finite inputs (the
@@ -70,7 +77,14 @@ def main() -> int:
     u = torch.randn(K, P, generator=g, device="cuda")
     vals = torch.randn(K, k, generator=g, device="cuda")
     vk, sk = ops.quantize_i8(vals, chunk)
+    buf = torch.empty(1 + K * P, device="cuda")
+    u_off = buf[1:].view(K, P)        # data_ptr 4 bytes off the buffer's
+    u_off.copy_(u)
+    u4 = torch.randn(4 * K, P, generator=g, device="cuda")
     cases = {"quantize_i8 (13, 1070794)": lambda: ops.quantize_i8(u, chunk),
+             "quantize_i8 (13, 1070794), x 4 bytes off":
+                 lambda: ops.quantize_i8(u_off, chunk),
+             "quantize_i8 (52, 1070794)": lambda: ops.quantize_i8(u4, chunk),
              "quantize_i8 (13, 53540)": lambda: ops.quantize_i8(vals, chunk),
              "dequantize_i8 (13, 53540)":
                  lambda: ops.dequantize_i8(vk, sk, chunk)}
