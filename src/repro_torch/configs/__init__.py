@@ -1,8 +1,9 @@
 """Architecture registry, a data copy of the JAX package's
 ``configs``: every architecture is a selectable config (``--arch
 <id>``). Each file pins the exact shape and cites its source in
-``source=``. The port's transformer runs the dense ``"attn"`` family;
-the others are configs only."""
+``source=``. The port's transformer builds and serves every one of
+them: dense, MoE, SSM, hybrid, the vision prefix and the
+encoder-decoder."""
 from __future__ import annotations
 
 import importlib

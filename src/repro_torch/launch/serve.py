@@ -1,11 +1,12 @@
 """Serving entry point: batched prefill + decode loop through the port's
-kernels (``use_kernels=True``) on a reduced architecture of the dense,
-SSM (xLSTM) or hybrid (Hymba) family, on the card unless the caller
-asks for the CPU.
+kernels (``use_kernels=True``) on a reduced variant of any architecture
+of ``repro_torch.configs`` (dense, MoE, SSM, hybrid, the vision prefix
+and Whisper's encoder-decoder), on the card unless the caller asks for
+the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --tokens 16
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
 from __future__ import annotations
@@ -33,7 +34,11 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
     """Generate ``new_tokens`` tokens for ``batch`` random prompts of
     ``prompt_len`` tokens (numpy ``default_rng(seed)``, as the reference
     draws them) with random weights drawn from ``torch.Generator`` seeded
-    with ``seed`` on the device. Returns the tokens, (batch, new_tokens)
+    with ``seed`` on the device. A vision config with a ``frontend_seq``
+    also gets patch embeddings, an encoder-decoder frame embeddings, both
+    f32 normals drawn after the prompts from the same ``default_rng``, in
+    the reference's order; the decode positions count the vision prefix.
+    Returns the tokens, (batch, new_tokens)
     int32. The first token is the argmax of the prefill logits either
     way, as in the reference; with ``greedy=False`` the decode steps
     sample, from a generator seeded with ``seed + 1``."""
@@ -44,6 +49,15 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                            (batch, prompt_len)),
                               dtype=torch.int32, device=dev)
+    extras = {}
+    stub = lambda: torch.as_tensor(rng.normal(size=(
+        batch, cfg.frontend_seq, cfg.frontend_dim)), dtype=torch.float32,
+        device=dev)
+    if cfg.family == "vlm" and cfg.frontend_seq:
+        extras["patch_embeds"] = stub()
+    if cfg.is_enc_dec:
+        extras["frames"] = stub()
+    n_prefix = cfg.frontend_seq if cfg.family == "vlm" else 0
     sampler = torch.Generator(dev).manual_seed(seed + 1)
 
     def pick(logits, sample):
@@ -54,7 +68,7 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
                                  generator=sampler).to(torch.int32)
 
     t0 = time.perf_counter()
-    logits, cache, memory = T.prefill(cfg, params, prompts)
+    logits, cache, memory = T.prefill(cfg, params, prompts, extras)
     cache = T.grow_cache(cfg, cache, extra=new_tokens)
     tok = pick(logits, sample=False)
     _sync(dev)
@@ -63,7 +77,8 @@ def serve(arch: str = "smollm-360m", batch: int = 4, prompt_len: int = 32,
     t0 = time.perf_counter()
     for step in range(new_tokens - 1):
         logits, cache = T.decode_step(cfg, params, tok, cache,
-                                      prompt_len + step, memory=memory)
+                                      prompt_len + n_prefix + step,
+                                      memory=memory)
         tok = pick(logits, sample=not greedy)
         out.append(tok)
     tokens = torch.cat(out, dim=1)

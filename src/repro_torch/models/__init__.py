@@ -1,4 +1,4 @@
-"""The paper's CNN, and the transformer stack (the dense, SSM and hybrid
-layer types) with its serve path; the other transformer families wait
-for ROADMAP.md Queue 1 item 9."""
+"""The paper's CNN, and the transformer stack of every family in
+``repro_torch.configs`` (dense, MoE, SSM, hybrid, the vision prefix and
+the encoder-decoder) with its serve path."""
 from . import cnn

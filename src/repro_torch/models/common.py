@@ -3,10 +3,7 @@
 A copy of the JAX package's ``models/common.py``: one frozen
 ``ModelConfig`` covers the six families (dense / moe / hybrid / ssm /
 vlm / audio); family-specific fields are zero or None when unused. The
-port's transformer runs the dense ``"attn"`` layer type and the SSM and
-hybrid ones (``"mlstm"``, ``"slstm"``, ``"hymba"``); the other
-families' fields are kept so every config of ``repro_torch.configs``
-carries the reference's values.
+port's transformer runs every family.
 """
 from __future__ import annotations
 

@@ -6,8 +6,11 @@ weight layouts:
   wq: (d_model, H, hd)    wk/wv: (d_model, G, hd)    wo: (H, hd, d_model)
   w_gate/w_up: (d_model, d_ff)    w_down: (d_ff, d_model)
 
-``cross_attention`` (Whisper) is not ported yet (ROADMAP.md Queue 1 item
-9). Decode updates the KV cache's tensors in place (the reference builds
+Where the reference multiplies tensors of two types (the stub frontends'
+f32 embeddings through bf16 weights, and so Whisper's whole encoder and
+its cross-attention K/V), ``jnp`` computes in the promoted type;
+:func:`promoted` does that here, and leaves a product of one type as it
+is. Decode updates the KV cache's tensors in place (the reference builds
 new arrays): a cache passed to :func:`cache_attend` with new K/V is
 returned, changed.
 """
@@ -17,6 +20,22 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ref import NEG_INF
+
+
+def promoted(*tensors):
+    """The tensors in their promoted type (``torch.promote_types``), as
+    ``jnp`` promotes the operands of a product; unchanged when they
+    share a type."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in tensors)
+
+
+def matmul(a, b):
+    """``a @ b`` in the operands' promoted type."""
+    a, b = promoted(a, b)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------
@@ -140,15 +159,17 @@ def chunked_attention(q, k, v, positions, *, causal: bool, window: int,
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
-def qkv_project(p, x):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
-    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
+def qkv_project(p, x, kv_source=None):
+    """Q from x, K and V from ``kv_source`` (default x)."""
+    src = x if kv_source is None else kv_source
+    q = torch.einsum("bsd,dhk->bshk", *promoted(x, p["wq"]))
+    k = torch.einsum("bsd,dgk->bsgk", *promoted(src, p["wk"]))
+    v = torch.einsum("bsd,dgk->bsgk", *promoted(src, p["wv"]))
     return q, k, v
 
 
 def out_project(p, o):
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return torch.einsum("bshk,hkd->bsd", *promoted(o, p["wo"]))
 
 
 def build_kv_cache(k, v, positions, window: int = 0):
@@ -234,6 +255,15 @@ def self_attention(cfg, p, x, positions, *, causal=True, window=None,
     return out_project(p, o), cache
 
 
+def cross_attention(cfg, p, x, memory):
+    """Decoder-to-encoder attention (Whisper). memory: (B, S_enc, D), its
+    K and V computed afresh at every call, as in the reference (no
+    cross-attention cache)."""
+    q, k, v = qkv_project(p, x, memory)
+    o = dot_product_attention(q, k, v, mask=None, soft_cap=cfg.logit_soft_cap)
+    return out_project(p, o)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -243,10 +273,10 @@ def mlp(cfg, p, x, swiglu_fn=None):
         if swiglu_fn is not None:
             h = swiglu_fn(x, p["w_gate"], p["w_up"])
         else:
-            h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+            h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
     else:  # gelu
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+        h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
+    return matmul(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +288,7 @@ def dense_init(gen: torch.Generator, shape, dtype, scale=None):
     scale = scale if scale is not None else shape[0] ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)      # in place: one f32 draw at a time
 
 
 def norm_params(cfg, device):

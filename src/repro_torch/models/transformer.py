@@ -1,6 +1,7 @@
-"""The decoder stack for the dense ``"attn"`` layer type and the SSM and
-hybrid layer types (``"mlstm"``, ``"slstm"``, ``"hymba"``), with their
-serve path: the JAX package's ``models/transformer.py`` in PyTorch.
+"""The generic decoder / encoder-decoder stack of every architecture in
+``repro_torch.configs`` (dense GQA, MoE, hybrid attention + mamba,
+xLSTM, the vision prefix and Whisper's encoder-decoder), with its serve
+path: the JAX package's ``models/transformer.py`` in PyTorch.
 
 Parameters are nested dicts of tensors in the reference's layout. A
 homogeneous stack (one type, and that type scannable) keeps its layers
@@ -12,66 +13,71 @@ the reference does. Caches follow their params' form.
 Public API:
   init_params(cfg, gen)                          -> params
   loss_fn(cfg, params, batch)                    -> (loss, metrics)
-  forward(cfg, params, tokens)                   -> (logits, aux)
-  prefill(cfg, params, tokens)                   -> (logits, cache, memory)
+  forward(cfg, params, tokens, extras)           -> (logits, aux)
+  prefill(cfg, params, tokens, extras)           -> (logits, cache, memory)
   init_decode_cache(cfg, B, cache_len)           -> cache (zeros)
   grow_cache(cfg, cache, extra)                  -> cache
-  decode_step(cfg, params, tokens, cache, index) -> (logits, cache)
+  decode_step(cfg, params, tokens, cache, index, memory) -> (logits, cache)
   params_from_jax(tree)                          -> params
+
+``extras`` carries the stub frontends' inputs: ``patch_embeds`` (B, P,
+frontend_dim) for a vision config, projected and put before the tokens
+(the logits of those P positions are dropped, and decode positions count
+them), and ``frames`` (B, F, frontend_dim) for the encoder-decoder, whose
+encoder output is the ``memory`` every decode step takes. The frontends
+and the encoder compute in the promoted type of their f32 inputs and the
+weights, as the reference does (:func:`layers.promoted`).
 
 **Kernels.** With ``cfg.use_kernels`` set, and no ``flash_fn`` or
 ``swiglu_fn`` of the caller's own, prefill attention is
-``kernels.flash_attention_bshd``, every SwiGLU ``kernels.swiglu``, every
-RMSNorm of the stack (``norm1``, ``norm2``, ``final_norm``)
-``kernels.rmsnorm`` and every prefill scan of the mLSTM blocks and the
-mamba heads ``kernels.mlstm_scan_bshd``, for ``kernels`` the namespace
-passed (default :mod:`repro_torch.kernels.ops`; ``ops.PLAIN`` runs the
-plain versions). The blocks' own norms and the sLSTM's feed-forward are
-plain, and decode attends to the KV cache and steps the recurrent state
-in plain torch, as the reference does. Without ``use_kernels`` the
-stack is the reference's plain model. ``decode_step`` updates a stacked
-cache's tensors in place; a list cache comes back as a new list.
+``kernels.flash_attention_bshd``, every SwiGLU MLP ``kernels.swiglu``,
+every RMSNorm of the decoder stack (``norm1``, ``norm_x``, ``norm2``,
+``final_norm``) ``kernels.rmsnorm`` and every prefill scan of the mLSTM
+blocks and the mamba heads ``kernels.mlstm_scan_bshd``, for ``kernels``
+the namespace passed (default :mod:`repro_torch.kernels.ops`;
+``ops.PLAIN`` runs the plain versions). The blocks' own norms, the
+sLSTM's feed-forward, the MoE layer (routing, experts and shared
+experts), cross-attention and the whole encoder are plain, and decode
+attends to the KV cache and steps the recurrent state in plain torch,
+as the reference does. Without ``use_kernels`` the stack is the
+reference's plain model. ``decode_step`` updates a stacked cache's
+tensors in place; a list cache comes back as a new list.
 
-Not ported (each raises ``NotImplementedError``): the MoE and
-cross-attention layer types, the vision / audio frontends and the
-encoder (ROADMAP.md Queue 1 item 9), and ``remat`` (this slice has no
-backward path).
+**Remat.** With ``cfg.remat``, every layer of a pass that is not decode
+(and every encoder layer) runs under ``torch.utils.checkpoint``
+(non-reentrant): its activations are recomputed in the backward pass,
+as ``jax.checkpoint`` does in the reference.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from . import ssm
+from . import moe, ssm
 from .common import ModelConfig
-from .layers import (apply_norm, attn_params, dense_init, mlp, mlp_params,
-                     norm_params, self_attention, sinusoidal_embedding)
+from .layers import (apply_norm, attn_params, cross_attention, dense_init,
+                     matmul, mlp, mlp_params, norm_params, self_attention,
+                     sinusoidal_embedding)
 
-_CUT = ("is not ported yet (ROADMAP.md Queue 1 item 9: the rest of the "
-        "models)")
-PORTED = ("attn", "hymba", "mlstm", "slstm")
-SCANNABLE = {"attn", "hymba", "mlstm"}
-# Each ported layer type's top-level parameter names.
+SCANNABLE = {"attn", "moe", "hymba", "xattn", "mlstm"}
+# Each layer type's top-level parameter names.
 LAYER_KEYS = {
     "attn": {"norm1", "attn", "norm2", "mlp"},
+    "moe": {"norm1", "attn", "norm2", "moe"},
+    "xattn": {"norm1", "attn", "norm2", "norm_x", "xattn", "mlp"},
     "hymba": {"norm1", "attn", "norm2", "mamba", "mlp"},
     "mlstm": {"norm", "w_up", "w_gate", "conv_w", "wq", "wk", "wv", "w_if",
               "b_if", "head_norm", "w_down"},
     "slstm": {"norm", "w_gates", "b_gates", "r_gates", "head_norm",
               "ffn_norm", "w_ff_gate", "w_ff_up", "w_ff_down"},
 }
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    cut = sorted(set(cfg.layer_types) - set(PORTED))
-    if cut:
-        raise NotImplementedError(f"layer types {cut} {_CUT}; the port runs "
-                                  f"{', '.join(PORTED)}")
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"the encoder-decoder stack {_CUT}")
-    if cfg.remat:
-        raise NotImplementedError("remat: this slice has no backward path")
+# The top-level parameter names of a model
+MODEL_KEYS = {"embed", "layers", "final_norm", "lm_head", "projector",
+              "encoder"}
 
 
 def _routes(cfg: ModelConfig, flash_fn, swiglu_fn, kernels):
@@ -102,13 +108,19 @@ def layer_params(cfg: ModelConfig, ltype: str, gen: torch.Generator):
         return ssm.mlstm_block_params(cfg, gen)
     if ltype == "slstm":
         return ssm.slstm_block_params(cfg, gen)
-    if ltype not in PORTED:
-        raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
+    if ltype not in LAYER_KEYS:
+        raise ValueError(f"unknown layer type {ltype}")
     p = {"norm1": norm_params(cfg, gen.device),
          "attn": attn_params(cfg, gen),
          "norm2": norm_params(cfg, gen.device)}
+    if ltype == "moe":
+        p["moe"] = moe.moe_params(cfg, gen)
+        return p
     if ltype == "hymba":
         p["mamba"] = ssm.mamba_head_params(cfg, gen)
+    elif ltype == "xattn":
+        p["norm_x"] = norm_params(cfg, gen.device)
+        p["xattn"] = attn_params(cfg, gen)
     p["mlp"] = mlp_params(cfg, gen)
     return p
 
@@ -133,8 +145,8 @@ def layer_apply(cfg: ModelConfig, ltype: str, p, x, positions, cache=None,
         state = cache["state"] if cache is not None else None
         x, state = ssm.slstm_block_apply(cfg, p, x, state)
         return x, ({"state": state} if keep else None), aux
-    if ltype not in PORTED:
-        raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
+    if ltype not in LAYER_KEYS:
+        raise ValueError(f"unknown layer type {ltype}")
     kv = cache["kv"] if cache is not None else None
     h = apply_norm(cfg, p["norm1"], x, kernels)
     o, new_kv = self_attention(cfg, p["attn"], h, positions, causal=True,
@@ -149,11 +161,18 @@ def layer_apply(cfg: ModelConfig, ltype: str, p, x, positions, cache=None,
             build_cache=build_cache, scan_fn=scan_fn)
         x = x + 0.5 * (o + mamba_o)           # parallel-head fusion
         newc = {"kv": new_kv, "state": state, "conv": conv}
-    else:
+    else:   # attn / moe / xattn
         x = x + o
         newc = {"kv": new_kv}
+    if ltype == "xattn":
+        h = apply_norm(cfg, p["norm_x"], x, kernels)
+        x = x + cross_attention(cfg, p["xattn"], h, memory)
     h = apply_norm(cfg, p["norm2"], x, kernels)
-    x = x + mlp(cfg, p["mlp"], h, swiglu_fn)
+    if ltype == "moe":
+        y, aux = moe.moe_ffn(cfg, p["moe"], h)
+        x = x + y
+    else:
+        x = x + mlp(cfg, p["mlp"], h, swiglu_fn)
     return x, (newc if keep else None), aux
 
 
@@ -172,11 +191,29 @@ def _is_homogeneous(types) -> bool:
 def stack_params(cfg: ModelConfig, gen: torch.Generator, num_layers=None,
                  ltype=None):
     """Stacked (L, ...) params of a homogeneous stack, a list of per-layer
-    params otherwise."""
+    params otherwise. A stacked tree is allocated once at its full depth
+    and each layer, drawn in turn, is copied into it and freed: the peak
+    is the stack and one layer, not the stack twice."""
     L = num_layers or cfg.num_layers
     types = [ltype] * L if ltype else list(cfg.layer_types)
-    layers = [layer_params(cfg, t, gen) for t in types]
-    return _stack(layers) if _is_homogeneous(types) else layers
+    if not _is_homogeneous(types):
+        return [layer_params(cfg, t, gen) for t in types]
+    layer = layer_params(cfg, types[0], gen)
+    out = tree_map(lambda a: a.new_empty((L,) + tuple(a.shape)), layer)
+    for i in range(L):
+        if i:
+            layer = layer_params(cfg, types[i], gen)
+        _store(out, i, layer)
+        del layer
+    return out
+
+
+def _store(stacked, i: int, layer) -> None:
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _store(stacked[k], i, layer[k])
+    else:
+        stacked[i].copy_(layer)
 
 
 def _stack(trees):
@@ -205,11 +242,14 @@ def stack_apply(cfg, params, x, positions, cache=None, memory=None, *,
                 swiglu_fn=None, kernels=None):
     """Apply the layer stack. Returns (x, new_cache, aux). ``kernels``:
     see the module docstring."""
-    _check_supported(cfg)
     flash_fn, swiglu_fn, scan_fn, norm_ns = _routes(cfg, flash_fn, swiglu_fn,
                                                     kernels)
     types = list(cfg.layer_types)
     stacked = not isinstance(params, list)
+    apply = layer_apply
+    if cfg.remat and not decode:
+        apply = functools.partial(checkpoint, layer_apply,
+                                  use_reentrant=False)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     built = []
     for i, t in enumerate(types):
@@ -217,10 +257,10 @@ def stack_apply(cfg, params, x, positions, cache=None, memory=None, *,
         c = None
         if cache is not None:
             c = _index(cache, i) if stacked else cache[i]
-        x, nc, a = layer_apply(cfg, t, p, x, positions, c, memory,
-                               decode=decode, build_cache=build_cache,
-                               flash_fn=flash_fn, swiglu_fn=swiglu_fn,
-                               scan_fn=scan_fn, kernels=norm_ns)
+        x, nc, a = apply(cfg, t, p, x, positions, c, memory,
+                         decode=decode, build_cache=build_cache,
+                         flash_fn=flash_fn, swiglu_fn=swiglu_fn,
+                         scan_fn=scan_fn, kernels=norm_ns)
         aux = aux + a
         if stacked and cache is not None:
             _write_back(c, nc)      # decode: the stacked cache, in place
@@ -259,7 +299,7 @@ def init_layer_cache(cfg: ModelConfig, ltype: str, B: int, cache_len: int,
         return torch.zeros(B, cfg.conv_kernel - 1, width, dtype=dtype,
                            device=device)
 
-    if ltype == "attn":
+    if ltype in ("attn", "moe", "xattn"):
         return {"kv": kv_cache(cache_len)}
     if ltype == "hymba":
         return {"kv": kv_cache(cache_len),
@@ -271,12 +311,11 @@ def init_layer_cache(cfg: ModelConfig, ltype: str, B: int, cache_len: int,
     if ltype == "slstm":
         z = lambda: torch.zeros(B, H, d // H, **f32)
         return {"state": {"c": z(), "n": z(), "h": z(), "m": z()}}
-    raise NotImplementedError(f"layer type {ltype!r} {_CUT}")
+    raise ValueError(ltype)
 
 
 def init_decode_cache(cfg: ModelConfig, B: int, cache_len: int, dtype=None,
                       device=None):
-    _check_supported(cfg)
     dtype = dtype or cfg.param_dtype
     per = [init_layer_cache(cfg, t, B, cache_len, dtype, device)
            for t in cfg.layer_types]
@@ -290,9 +329,6 @@ def init_decode_cache(cfg: ModelConfig, B: int, cache_len: int, dtype=None,
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """Random weights at the reference's scales, drawn from ``gen`` on its
     device (``torch.Generator(device).manual_seed(seed)``)."""
-    _check_supported(cfg)
-    if cfg.frontend:
-        raise NotImplementedError(f"the {cfg.frontend} frontend {_CUT}")
     dt = cfg.param_dtype
     p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                              scale=0.02),
@@ -300,6 +336,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
          "final_norm": norm_params(cfg, gen.device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+    if cfg.frontend:      # the stub frontend's projector
+        p["projector"] = {
+            "w1": dense_init(gen, (cfg.frontend_dim, cfg.d_model), dt),
+            "w2": dense_init(gen, (cfg.d_model, cfg.d_model), dt)}
+    if cfg.is_enc_dec:
+        p["encoder"] = {
+            "layers": stack_params(cfg, gen, cfg.encoder_layers, "attn"),
+            "final_norm": norm_params(cfg, gen.device)}
     return p
 
 
@@ -314,8 +358,13 @@ def _layer_type(keys) -> str:
     for t, need in LAYER_KEYS.items():
         if set(keys) == need:
             return t
-    raise NotImplementedError(f"layer params {sorted(keys)}: only the "
-                              f"{', '.join(PORTED)} layer types are ported")
+    raise ValueError(f"layer params {sorted(keys)} are none of the layer "
+                     f"types {', '.join(LAYER_KEYS)}")
+
+
+def _check_layers(layers) -> None:
+    for layer in (layers if isinstance(layers, list) else [layers]):
+        _layer_type(layer)
 
 
 def params_from_jax(tree) -> dict:
@@ -323,18 +372,26 @@ def params_from_jax(tree) -> dict:
     ``ml_dtypes.bfloat16``) -> this module's tree on the CPU: the same
     nesting, the same dtypes, stacked (L, ...) layers as stacked, a list
     of per-layer dicts as a list. Layouts agree, so this copies."""
-    extra = set(tree) - {"embed", "layers", "final_norm", "lm_head"}
+    extra = set(tree) - MODEL_KEYS
     if extra:
-        raise NotImplementedError(f"parameters {sorted(extra)} belong to "
-                                  f"parts that {_CUT}")
-    layers = tree["layers"]
-    for layer in (layers if isinstance(layers, list) else [layers]):
-        _layer_type(layer)
+        raise ValueError(f"parameters {sorted(extra)} belong to no part of "
+                         f"the model ({', '.join(sorted(MODEL_KEYS))})")
+    _check_layers(tree["layers"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        if set(enc) != {"layers", "final_norm"}:
+            raise ValueError(f"encoder params {sorted(enc)}: expected "
+                             f"layers and final_norm")
+        _check_layers(enc["layers"])
     out = tree_map(_to_torch, tree)
-    if isinstance(layers, dict):
-        depth = {a.shape[0] for a in _leaves(out["layers"])}
-        if len(depth) != 1:
-            raise ValueError(f"stacked layer leaves disagree on L: {depth}")
+    stacks = [out["layers"]] + ([out["encoder"]["layers"]]
+                                if "encoder" in out else [])
+    for layers in stacks:
+        if isinstance(layers, dict):
+            depth = {a.shape[0] for a in _leaves(layers)}
+            if len(depth) != 1:
+                raise ValueError(f"stacked layer leaves disagree on L: "
+                                 f"{depth}")
     return out
 
 
@@ -346,20 +403,60 @@ def _leaves(tree):
         yield tree
 
 
+def _project_frontend(params, embeds):
+    pr = params["projector"]
+    h = F.gelu(matmul(embeds, pr["w1"]), approximate="tanh")
+    return matmul(h, pr["w2"])
+
+
+def _encode(cfg, params, frames):
+    """Whisper-style encoder over stub frame embeddings (B, F, fd): the
+    projector, sinusoidal positions and non-causal, unwindowed ``"attn"``
+    layers with their own final norm, all plain (the reference gives the
+    encoder no kernels)."""
+    x = _project_frontend(params, frames)
+    B, S = x.shape[:2]
+    x = x + sinusoidal_embedding(S, cfg.d_model, x.dtype, x.device)[None]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+
+    def one_layer(p, x):
+        h = apply_norm(cfg, p["norm1"], x)
+        o, _ = self_attention(cfg, p["attn"], h, positions, causal=False,
+                              window=0)
+        x = x + o
+        h = apply_norm(cfg, p["norm2"], x)
+        return x + mlp(cfg, p["mlp"], h)
+
+    if cfg.remat:
+        one_layer = functools.partial(checkpoint, one_layer,
+                                      use_reentrant=False)
+    layers = params["encoder"]["layers"]
+    stacked = not isinstance(layers, list)
+    for i in range(cfg.encoder_layers if stacked else len(layers)):
+        x = one_layer(_index(layers, i) if stacked else layers[i], x)
+    return apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+
 def embed_inputs(cfg, params, tokens, extras=None):
-    """Token embedding. Returns (x, positions, n_prefix, memory)."""
-    if extras and ({"patch_embeds", "frames"} & set(extras)):
-        raise NotImplementedError(f"modality extras {sorted(extras)}: the "
-                                  f"frontends {_CUT}")
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"the encoder {_CUT}")
+    """Token embedding and the modality prefix or encoder. Returns (x,
+    positions, n_prefix, memory)."""
+    extras = extras or {}
     x = params["embed"][tokens]
+    memory = None
+    n_prefix = 0
+    if cfg.frontend == "vision" and "patch_embeds" in extras:
+        prefix = _project_frontend(params, extras["patch_embeds"]).to(x.dtype)
+        x = torch.cat([prefix, x], dim=1)
+        n_prefix = prefix.shape[1]
+    if cfg.is_enc_dec:
+        memory = _encode(cfg, params, extras["frames"])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     if cfg.positional == "sinusoidal":
         x = x + sinusoidal_embedding(S, cfg.d_model, x.dtype, x.device)[None]
-    return x, positions, 0, None
+    return x, positions, n_prefix, memory
 
 
 def unembed(cfg, params, x):
@@ -370,13 +467,17 @@ def unembed(cfg, params, x):
 
 def forward(cfg: ModelConfig, params, tokens, extras=None, flash_fn=None,
             swiglu_fn=None, kernels=None):
-    """Full-sequence logits (train path). Returns (logits, aux)."""
-    x, positions, _, memory = embed_inputs(cfg, params, tokens, extras)
+    """Full-sequence logits (train path), without the modality prefix's
+    positions. Returns (logits, aux)."""
+    x, positions, n_prefix, memory = embed_inputs(cfg, params, tokens,
+                                                  extras)
     x, _, aux = stack_apply(cfg, params["layers"], x, positions,
                             memory=memory, flash_fn=flash_fn,
                             swiglu_fn=swiglu_fn, kernels=kernels)
     x = apply_norm(cfg, params["final_norm"], x,
                    _routes(cfg, flash_fn, swiglu_fn, kernels)[3])
+    if n_prefix:
+        x = x[:, n_prefix:]
     return unembed(cfg, params, x), aux
 
 
@@ -385,10 +486,13 @@ def loss_fn(cfg: ModelConfig, params, batch, flash_fn=None, swiglu_fn=None,
     """Weighted next-token cross-entropy.
 
     batch: tokens (B,S) int, targets (B,S) int (-1 = masked), weights
-    (B,) federated per-client weights p_k (optional).
+    (B,) federated per-client weights p_k (optional), plus the modality
+    extras (``patch_embeds``, ``frames``).
     """
-    logits, aux = forward(cfg, params, batch["tokens"], flash_fn=flash_fn,
-                          swiglu_fn=swiglu_fn, kernels=kernels)
+    extras = {k: batch[k] for k in ("patch_embeds", "frames") if k in batch}
+    logits, aux = forward(cfg, params, batch["tokens"], extras,
+                          flash_fn=flash_fn, swiglu_fn=swiglu_fn,
+                          kernels=kernels)
     targets = batch["targets"]
     mask = (targets >= 0).to(torch.float32)
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
@@ -445,7 +549,8 @@ def _grow_kv(cache, extra: int, axis: int):
 def decode_step(cfg: ModelConfig, params, tokens, cache, index, memory=None,
                 flash_fn=None, swiglu_fn=None, kernels=None):
     """One decode step. tokens: (B, 1); index: the absolute position (an
-    int). Returns (logits, cache); a stacked cache's tensors are updated
+    int; it counts a vision prefix); memory: the encoder output prefill
+    returned (encoder-decoder only). Returns (logits, cache); a stacked cache's tensors are updated
     in place, a list cache comes back as a new list."""
     x = params["embed"][tokens]
     if cfg.positional == "sinusoidal":

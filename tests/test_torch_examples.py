@@ -1,4 +1,4 @@
-"""The port's three examples run to their end on the CPU
+"""The port's examples run to their end on the CPU
 (``--device cpu``), at their smallest sizes, as a user runs them."""
 import os
 import subprocess
@@ -40,3 +40,11 @@ def test_fl_service_demo_resumes_the_lm_task():
     assert "resumed from task_state.ckpt" in out
     assert "rounds equal: True, adapters equal: True" in out
     assert "ServiceScheduler served 4 concurrent tasks" in out
+
+
+def test_serve_decode():
+    out = run_example("serve_decode_torch.py")
+    for arch in ("smollm-360m", "hymba-1.5b", "xlstm-125m",
+                 "whisper-large-v3"):
+        assert f"arch={arch}-reduced device=cpu prefill(2x24)" in out
+    assert out.count("generated:") == 4

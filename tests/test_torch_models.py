@@ -361,7 +361,7 @@ def test_params_from_jax_keeps_layout_and_dtypes():
     assert common.count_params(mine) == jcommon.count_params(jp)
     assert T.tree_map(lambda a: (tuple(a.shape), a.dtype), mine) == \
         T.tree_map(lambda a: (tuple(a.shape), a.dtype), p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="encoder"):
         T.params_from_jax({**jax.tree_util.tree_map(np.asarray, jp),
                            "encoder": {}})
 
@@ -381,12 +381,33 @@ def test_init_decode_cache_matches_reference():
     ("qwen2-moe-a2.7b", {}), ("internvl2-26b", {}),
     ("llama4-scout-17b-a16e", {}), ("whisper-large-v3", {}),
     ("smollm-360m", {"remat": True})])
-def test_unported_families_raise(arch, over):
+def test_families_init_like_the_reference(arch, over):
     """MoE (Qwen2-MoE, Llama 4 Scout), the vision frontend (InternVL2),
-    the encoder-decoder (Whisper) and remat are still cut."""
-    cfg = get_config(arch, **over).reduced()
-    with pytest.raises(NotImplementedError):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
+    the encoder-decoder (Whisper) and remat build: the port's own
+    ``init_params`` tree has the reference's names, shapes and dtypes,
+    and as many parameters."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(arch, **over).reduced(),
+                                  dtype=dtype)
+        jcfg = dataclasses.replace(jget(arch, **over).reduced(), dtype=dtype)
+        mine = T.init_params(cfg, torch.Generator().manual_seed(0))
+        jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+        want = {}
+        for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+            want["/".join(str(k.key) for k in path)] = (leaf.shape,
+                                                        leaf.dtype.name)
+        got = {}
+
+        def walk(node, prefix):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, f"{prefix}/{k}" if prefix else k)
+            else:
+                got[prefix] = (tuple(node.shape),
+                               str(node.dtype).replace("torch.", ""))
+        walk(mine, "")
+        assert got == want
+        assert common.count_params(mine) == jcommon.count_params(jp)
 
 
 # ---------------------------------------------------------------------------
@@ -497,8 +518,8 @@ def test_ssm_init_decode_cache_matches_reference(variant):
 def test_params_from_jax_carries_list_and_stacked_trees(variant):
     """bf16 leaves copied exactly into the reference's nesting: per-layer
     dicts in a list for xLSTM's mixed stack, stacked (L, ...) for
-    Hymba; the port's own init draws the same tree; unported layer
-    params are refused."""
+    Hymba; the port's own init draws the same tree; an MoE stack carries
+    across too."""
     cfg, jcfg, p, jp = ssm_pair(variant, dtype="bfloat16")
     flat = jax.tree_util.tree_leaves_with_path(jp)
     for path, leaf in flat:
@@ -521,9 +542,14 @@ def test_params_from_jax_carries_list_and_stacked_trees(variant):
     moe = get_config("qwen2-moe-a2.7b").reduced()
     jmoe = JT.init_params(jget("qwen2-moe-a2.7b").reduced(),
                           jax.random.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="ported"):
-        T.params_from_jax(jax.tree_util.tree_map(np.asarray, jmoe))
+    carried = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jmoe))
     assert moe.layer_types[0] == "moe"
+    assert sorted(carried["layers"]) == sorted(T.LAYER_KEYS["moe"])
+    for name, leaf in jmoe["layers"]["moe"].items():
+        if name != "shared":
+            np.testing.assert_array_equal(
+                carried["layers"]["moe"][name].numpy(), np.asarray(leaf))
+    assert carried["layers"]["moe"]["router"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("variant", list(SSM_VARIANTS))

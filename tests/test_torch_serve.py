@@ -32,14 +32,16 @@ from repro_torch.models import transformer as T
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def greedy_port(cfg, params, prompts, new_tokens):
-    logits, cache, _ = T.prefill(cfg, params, prompts)
+def greedy_port(cfg, params, prompts, new_tokens, extras=None,
+                n_prefix=0):
+    logits, cache, memory = T.prefill(cfg, params, prompts, extras)
     cache = T.grow_cache(cfg, cache, new_tokens)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     out = [tok]
     for step in range(new_tokens - 1):
         logits, cache = T.decode_step(cfg, params, tok, cache,
-                                      prompts.shape[1] + step)
+                                      prompts.shape[1] + n_prefix + step,
+                                      memory=memory)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         out.append(tok)
     return torch.cat(out, 1).numpy()
@@ -120,10 +122,52 @@ def test_serve_runs_a_windowed_dense_arch():
     assert out.shape == (1, 3)
 
 
-def test_serve_refuses_unported_families():
-    """MoE is still cut (the SSM families serve: below)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.serve("qwen2-moe-a2.7b", verbose=False, device="cpu")
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                                  "internvl2-26b", "whisper-large-v3"])
+def test_serve_runs_the_moe_vision_and_audio_families(arch, monkeypatch):
+    """``serve`` on the MoE, vision-prefix and encoder-decoder families
+    (reduced; on the CPU the plain versions) draws the reference's extras
+    (patch embeddings for a VLM, frames for Whisper, after the prompts
+    from the same ``default_rng``), counts the prefix in the decode
+    positions, and gives the tokens of a greedy loop through the plain
+    model on the same seeded weights, prompts and extras."""
+    import repro.launch.serve as jserve
+
+    def stop(cfg, params, tokens, extras=None, **kw):
+        raise _Stop(extras)
+    monkeypatch.setattr(jserve.T, "prefill", stop)
+    with pytest.raises(_Stop) as jextras:
+        jserve.serve(arch, batch=2, prompt_len=16, new_tokens=5, seed=4,
+                     verbose=False)
+    jextras = jextras.value.args[0]
+    seen = []
+    real = T.prefill
+
+    def spy(cfg, params, tokens, extras=None, **kw):
+        seen.append(extras)
+        return real(cfg, params, tokens, extras, **kw)
+    monkeypatch.setattr(T, "prefill", spy)
+    got = S.serve(arch, batch=2, prompt_len=16, new_tokens=5, seed=4,
+                  verbose=False, device="cpu")
+    monkeypatch.setattr(T, "prefill", real)
+    extras = seen[0]
+    assert sorted(extras) == sorted(jextras)
+    assert bool(extras) == (arch in ("internvl2-26b", "whisper-large-v3"))
+    for name, value in extras.items():
+        assert value.dtype == torch.float32
+        np.testing.assert_array_equal(value.numpy(), np.asarray(jextras[name]))
+    assert got.shape == (2, 5) and got.dtype == torch.int32
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, torch.Generator("cpu").manual_seed(4))
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 16))
+    n_prefix = cfg.frontend_seq if cfg.family == "vlm" else 0
+    want = greedy_port(cfg, params, torch.as_tensor(prompts), 5, extras,
+                       n_prefix)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_serve_defaults_to_the_card():

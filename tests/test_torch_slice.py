@@ -189,6 +189,7 @@ def test_port_never_imports_jax_or_repro():
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.swiglu\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.ssm, repro_torch.kernels.mlstm_scan\n"
+        "import repro_torch.models.moe\n"
         "import repro_torch.core.faults, repro_torch.core.workload\n"
         "import repro_torch.core.driver, repro_torch.core.telemetry\n"
         "repro_torch.configs.all_configs()\n"
