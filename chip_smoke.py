@@ -164,10 +164,32 @@ plain PyTorch version. Phases, one line each:
     decode step cross-attending to the encoder's memory; 32
     ``flash_attention`` launches;
 33. the entry point ``serve()`` at its default (reduced) size for those
-    four architectures.
+    four architectures;
+34. the mesh-sharded device plane at CIFAR_CNN width (phase 5's task,
+    dropout 0): unsharded, on ``make_host_mesh()`` and on 2 shards of
+    cuda:0, each through the lifecycle, wall per round; then every round
+    of the unsharded run again from the parameters that entered it
+    through both sharded chunk functions: masks bit-equal, q, losses and
+    parameters within rtol 1e-3 / atol 1e-4 (a run of 24 rounds cannot
+    be held so: the CNN at local_lr 0.1 amplifies any f32 rounding
+    round after round); the sharded runs launch no kernel;
+35. placement on the card: ``ServiceScheduler(n_devices=1)`` with two
+    real ``DeviceFLSim`` tenants (``place_on(0)``), bit-equal to the same
+    tasks run alone; ``place_on(1)`` refused on one card (on two or more,
+    tenants on cuda:0 and cuda:1, bit-equal too);
+36. FedSGD at SmolLM-360M's full width and depth in bf16 through
+    ``repro_torch.launch.train.train`` (24 clients, its batch
+    composition, 8 steps): finite losses, no kernel launched, wall per
+    step, tokens/s, peak memory; 8 steps on one fixed 8 x 1,024 batch
+    lower its loss; 4 microbatches against one: loss within 1e-2
+    relative, gradients within 2^-4 by leaf (L2); a step's device busy
+    share from ``torch.profiler``;
+37. the entry point ``python -m repro_torch.launch.train --steps 20``:
+    exit 0, final loss below the first.
 
-Phases 5, 8, 9, 12, 15, 16, 18, 22, 23, 24, 26, 27 and 29-33 set their
-kernels' launch counts to 0 just before and read them just after. Each phase line carries the
+Phases 5, 8, 9, 12, 15, 16, 18, 22, 23, 24, 26, 27, 29-34 and 36 set
+their kernels' launch counts to 0 just before and read them just
+after. Each phase line carries the
 seconds since the script started. Any failure raises and exits non-zero. The
 last two lines are the kernel records and ``{"ok": true, "device":
 {...}}``.
@@ -175,6 +197,7 @@ last two lines are the kernel records and ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -3241,6 +3264,376 @@ def examples_on_card() -> None:
     phase(28, "examples on the card, each exit 0 | " + " | ".join(lines))
 
 
+# The sharded device plane (phase 34): phase 5's configuration, dropout
+# off in all three runs (mesh mode does not simulate it).
+SHARD_ROUNDS, SHARD_CHUNK = 24, 8
+# FedSGD at SmolLM-360M's full width and depth (phase 36): clients,
+# batch rows, sequence length, steps, microbatches of the accumulation
+# check. Gradients accumulated over 4 microbatches against the full
+# batch's, both from bf16 weights: each leaf's L2 gap within 2^-4 of its
+# norm (8 bf16 ulps at 2^-7: the two passes round the same activations
+# and products in bf16 in other groupings).
+FEDSGD_CLIENTS, FEDSGD_B, FEDSGD_SEQ, FEDSGD_STEPS, FEDSGD_M = 24, 8, 1024, 8, 4
+FEDSGD_GRAD_TOL = 2.0 ** -4
+
+
+def cifar_setting(n_train: int, n_test: int):
+    """CIFAR data, its 100-client ``type2`` partition and client pool,
+    as ``run_fl_experiment`` builds them from seed 0."""
+    from repro_torch.data.synthetic import make_classification_data
+    from repro_torch.fl.partition import partition_labels
+    from repro_torch.fl.simulation import pool_from_partition
+    full = make_classification_data("cifar", n_train + n_test, seed=0)
+    data = full.subset(np.arange(n_train))
+    test = full.subset(np.arange(n_train, n_train + n_test))
+    parts = partition_labels(data.labels, 100, "type2", data.num_classes,
+                             seed=0)
+    pool = pool_from_partition(data.labels, parts, data.num_classes, seed=0)
+    return data, test, parts, pool
+
+
+def cifar_task(seed: int, rounds: int):
+    from repro_torch.core import TaskRequest
+    return TaskRequest(budget=1e9, n_star=100, subset_size=SUBSET_N,
+                       subset_delta=SUBSET_DELTA, x_star=3,
+                       max_periods=10_000, scheduler="mkp", seed=seed,
+                       round_chunk=SHARD_CHUNK, max_rounds=rounds)
+
+
+def pad_slots(schedule: dict, K: int) -> dict:
+    """A schedule's client axis padded with empty slots (row 0, weight 0,
+    inactive) to ``K``: padding leaves the real slots' draws alone."""
+    extra = K - schedule["rows"].shape[1]
+    return {k: v if k == "round_ids" else
+            torch.nn.functional.pad(v, (0, extra)) for k, v in
+            schedule.items()}
+
+
+def sharded_plane() -> dict:
+    """Phase 34: the CIFAR_CNN device plane unsharded, on
+    ``make_host_mesh()`` (one shard a card) and on 2 shards of cuda:0,
+    from the same seed, each through the lifecycle; then every round of
+    the unsharded run again through both sharded chunk functions from
+    the parameters that entered it. Returns the sharded runs' launches
+    by kernel."""
+    from repro_torch.core import FLServiceProvider, lifecycle
+    from repro_torch.fl.round import shard_devices
+    from repro_torch.fl.simulation import DeviceFLSim, SimConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import cnn
+    data, test, parts, pool = cifar_setting(50_000, 10_000)
+    runs, sharded, calls = {}, dict.fromkeys(ops.LAUNCHES, 0), []
+    for name, mesh in (("unsharded", None),
+                       ("make_host_mesh()", make_host_mesh()),
+                       ("2 shards of cuda:0", make_host_mesh("cuda:0", 2))):
+        trainer = DeviceFLSim(cnn.CIFAR_CNN, data, parts, test,
+                              SimConfig(dropout_rate=0.0),
+                              pad_subset_to=SUBSET_N + SUBSET_DELTA,
+                              mesh=mesh, device="cuda" if mesh is None
+                              else None)
+        if mesh is None:               # record what enters every chunk
+            unsharded_fn = trainer.chunk_fn
+
+            def recorded(params, staged, schedule, key):
+                calls.append(({k: v.clone() for k, v in params.items()},
+                              schedule))
+                return unsharded_fn(params, staged, schedule, key)
+            trainer.chunk_fn = recorded
+        provider = FLServiceProvider(pool)
+        state = lifecycle.submit(provider, cifar_task(0, SHARD_ROUNDS))
+        for n in ops.LAUNCHES:
+            ops.LAUNCHES[n] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording() as rounds:
+            state, events = lifecycle.drain(provider, state, trainer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if mesh is not None:
+            for n, c in ops.LAUNCHES.items():
+                sharded[n] += c
+        losses = [e.metrics["loss"] for e in events]
+        check(len(events) == SHARD_ROUNDS and all(np.isfinite(losses)),
+              f"{name}: {len(events)} rounds of finite loss, asked "
+              f"{SHARD_ROUNDS}")
+        runs[name] = (events, rounds, wall, trainer, dict(ops.LAUNCHES),
+                      mesh)
+    base_events, base_rounds, _, base, base_counts, _ = runs["unsharded"]
+    check(base_counts["fedavg_agg_quality"] == SHARD_ROUNDS,
+          "the unsharded plane launches fedavg_agg_quality once a round")
+    check(all(c == 0 for c in sharded.values()),
+          f"the sharded plane launches no kernel: {sharded}")
+
+    # every round again from the parameters that entered it: the
+    # sharded chunk functions against the unsharded one
+    gaps = {name: [0.0, 0.0, 0.0] for name in list(runs)[1:]}
+    n_rounds = 0
+    for params, schedule in calls:
+        for t in range(schedule["rows"].shape[0]):
+            one = {k: v[t:t + 1] for k, v in schedule.items()}
+            K = one["rows"].shape[1]
+            nxt, want = unsharded_fn(params, base.data, one, base.base_key)
+            for name in gaps:
+                trainer, mesh = runs[name][3], runs[name][5]
+                n = len(shard_devices(mesh))
+                got_p, got = trainer.chunk_fn(
+                    params, trainer.data, pad_slots(one, -(-K // n) * n),
+                    trainer.base_key)
+                cut = {k: got[k][:, :K] for k in ("masks", "q_values",
+                                                 "client_losses")}
+                check(torch.equal(cut["masks"], want["masks"]),
+                      f"{name}: round {int(one['round_ids'][0])}'s masks "
+                      f"bit-equal to the unsharded plane's")
+                pairs = [(cut["q_values"], want["q_values"]),
+                         (cut["client_losses"], want["client_losses"]),
+                         (got["mean_loss"], want["mean_loss"])] + \
+                    [(got_p[k], nxt[k]) for k in nxt]
+                check(all(torch.allclose(a, b, rtol=1e-3, atol=1e-4)
+                          for a, b in pairs),
+                      f"{name}: round {int(one['round_ids'][0])}'s q, "
+                      f"losses and parameters within rtol 1e-3 / atol "
+                      f"1e-4 of the unsharded plane's")
+                g = gaps[name]
+                g[0] = max(g[0], float((pairs[0][0] - pairs[0][1]).abs()
+                                       .max()))
+                g[1] = max(g[1], float(((pairs[2][0] - pairs[2][1])
+                                        / pairs[2][1]).abs().max()))
+                g[2] = max(g[2], max(float((a - b).abs().max())
+                                     for a, b in pairs[3:]))
+            params = nxt
+            n_rounds += 1
+    check(n_rounds == SHARD_ROUNDS, f"{n_rounds} rounds held again")
+    lines = []
+    for name, (events, rounds, wall, trainer, _, _) in runs.items():
+        same = sum(event_key(e)[:5] == event_key(b)[:5]
+                   for e, b in zip(events, base_events))
+        check(all(np.array_equal(r[1], b[1])
+                  for r, b, e, f in zip(rounds, base_rounds, events,
+                                        base_events)
+                  if list(e.subset) == list(f.subset)),
+              f"{name}: returned masks bit-equal where the subsets agree")
+        end = max(float((trainer.params[k] - base.params[k]).abs().max())
+                  for k in base.params)
+        line = (f"{name} {wall / SHARD_ROUNDS * 1e3:.1f} ms/round, accuracy "
+                f"{trainer.evaluate():.4f}, loss {events[0].metrics['loss']:.4f}"
+                f" -> {events[-1].metrics['loss']:.4f}, {same}/{SHARD_ROUNDS} "
+                f"rounds with the unsharded schedule, final params "
+                f"{end:.2e} apart")
+        if name in gaps:
+            line += (f"; rounds held again from equal params: largest gaps "
+                     f"q {gaps[name][0]:.2e}, mean loss {gaps[name][1]:.2e} "
+                     f"rel, params {gaps[name][2]:.2e}")
+        lines.append(line)
+    phase(34, f"sharded device plane, CIFAR_CNN, 100 clients, type2, 50,000 "
+              f"samples, subsets of 10 +- 3, {SHARD_ROUNDS} rounds in chunks "
+              f"of {SHARD_CHUNK}, dropout 0, wall per round of the service "
+              f"loop (stage 2 + training, set-up excluded): "
+              + " | ".join(lines) + f" | the sharded runs launch no kernel "
+              f"(the unsharded {base_counts['fedavg_agg_quality']} "
+              f"fedavg_agg_quality)")
+    return sharded
+
+
+def placement_on_card() -> None:
+    """Phase 35: ``ServiceScheduler(n_devices=1)`` with two real
+    device-plane tenants (each gets ``place_on(0)``) against the same
+    tasks drained alone, bit for bit; ``place_on(1)`` refused on one
+    card; on two or more cards, tenants on cuda:0 and cuda:1 too."""
+    from repro_torch.core import (FLServiceProvider, ServiceScheduler,
+                                  as_run_result, lifecycle)
+    from repro_torch.fl.simulation import DeviceFLSim, SimConfig
+    from repro_torch.models import cnn
+    data, test, parts, pool = cifar_setting(10_000, 2_000)
+    rounds = SHARD_CHUNK
+    tasks = [cifar_task(seed, rounds) for seed in (0, 1)]
+    placed_on = []
+
+    def make():
+        trainer = DeviceFLSim(cnn.CIFAR_CNN, data, parts, test,
+                              SimConfig(eval_every=10_000),
+                              pad_subset_to=SUBSET_N + SUBSET_DELTA,
+                              device="cuda")
+        hook = trainer.place_on
+        trainer.place_on = lambda i: (placed_on.append(i), hook(i))
+        return trainer
+
+    alone = []
+    for task in tasks:
+        provider, trainer = FLServiceProvider(pool), make()
+        _, events = lifecycle.drain(provider, lifecycle.submit(provider,
+                                                               task), trainer)
+        alone.append(([event_key(e) for e in events], trainer.params))
+
+    def scheduled(n_devices):
+        sched = ServiceScheduler(FLServiceProvider(pool),
+                                 n_devices=n_devices, placement="round_robin")
+        trainers = [make() for _ in tasks]
+        for task, trainer in zip(tasks, trainers):
+            sched.submit(task, trainer)
+        t = time.perf_counter()
+        done = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for tid, (events, params) in enumerate(alone):
+            check([event_key(e) for e in done[tid].rounds] == events
+                  and all(torch.equal(trainers[tid].params[k].cpu(),
+                                      params[k].cpu()) for k in params),
+                  f"n_devices={n_devices}: task {tid}'s events and params "
+                  f"bit-equal to the task drained alone")
+        return [str(t.device) for t in trainers], wall
+
+    placed_on.clear()
+    devices, wall = scheduled(1)
+    check(placed_on == [0, 0], f"place_on calls {placed_on}, want [0, 0]")
+    count = torch.cuda.device_count()
+    line = f"two tenants on {devices} ({wall:.2f} s) bit-equal alone"
+    if count < 2:
+        try:
+            make().place_on(1)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None, "place_on(1) raises on a one-card machine")
+        line += f"; place_on(1) raised: {raised}"
+    else:
+        placed_on.clear()
+        devices, wall = scheduled(2)
+        check(placed_on == [0, 1] and devices == ["cuda:0", "cuda:1"],
+              f"round_robin over two cards: {placed_on}, {devices}")
+        line += f"; on two cards {devices} ({wall:.2f} s) bit-equal alone"
+    phase(35, f"placement on the card, torch.cuda.device_count() = {count}: "
+              f"ServiceScheduler(n_devices=1), CIFAR_CNN device plane, "
+              f"10,000 samples, {rounds} rounds a task: {line}")
+
+
+def fedsgd_full_width() -> dict:
+    """Phase 36: FedSGD at SmolLM-360M's full width and depth through
+    ``launch.train.train``; a fixed batch's loss over 8 steps; microbatch
+    accumulation against the full batch. Returns the launches of the
+    train run by kernel."""
+    from repro_torch import optim
+    from repro_torch.configs import smollm_360m
+    from repro_torch.core import generate_subsets
+    from repro_torch.data.synthetic import make_lm_data
+    from repro_torch.fl.partition import client_histograms, partition_labels
+    from repro_torch.fl.round import make_fedsgd_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    cfg = smollm_360m.config()
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.dtype, cfg.remat)
+          == (32, 960, 15, 5, 2560, 49_152, "bfloat16", False),
+          f"SmolLM-360M at full width and depth, bf16: {cfg}")
+    data = make_lm_data(FEDSGD_CLIENTS * 64, FEDSGD_SEQ, cfg.vocab_size,
+                        seed=0)
+    parts = partition_labels(data.labels, FEDSGD_CLIENTS, "type2",
+                             data.num_classes, seed=0)
+    hists = client_histograms(data.labels, parts, data.num_classes)
+    sched = generate_subsets(hists, n=4, delta=1, x_star=3)
+    rows = [max(FEDSGD_B // len(s), 1) * len(s)
+            for s in sched.subsets[:FEDSGD_STEPS]]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for n in ops.LAUNCHES:
+        ops.LAUNCHES[n] = 0
+    out = train.train(cfg, data, parts, hists, steps=FEDSGD_STEPS,
+                      batch=FEDSGD_B, subset=4, lr=3e-3, seed=0,
+                      device="cuda")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(x.numel() for x in optim.tree_leaves(out["params"]))
+    losses, step_s = out["losses"], out["step_s"]
+    del out
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    check(all(c == 0 for c in launches.values()),
+          f"FedSGD launches no kernel (no kernel has a backward): {launches}")
+    tok_s = sum(r * FEDSGD_SEQ for r in rows[1:]) / sum(step_s[1:])
+
+    # 8 steps on one fixed batch of 8 x 1,024: clients 0-3, two
+    # sequences each, weighted as launch.train weights them
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    batch = train.client_batch(plain, data, parts, hists, [0, 1, 2, 3],
+                               FEDSGD_B, np.random.default_rng(1), "cuda")
+    check(batch["tokens"].shape == (FEDSGD_B, FEDSGD_SEQ),
+          f"fixed batch {tuple(batch['tokens'].shape)}")
+    loss = lambda p, b: T.loss_fn(plain, p, b)
+    params = T.init_params(plain, torch.Generator("cuda").manual_seed(0))
+    opt = optim.adam(optim.warmup_cosine(3e-3, 10, FEDSGD_STEPS),
+                     grad_clip=1.0)
+    step = make_fedsgd_step(loss, opt)
+    p, state, fixed, walls = params, opt.init(params), [], []
+    for _ in range(FEDSGD_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, state, m = step(p, state, batch)
+        fixed.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t)
+    check(fixed[-1] < fixed[0], f"the fixed batch's loss falls: {fixed}")
+    _, (dev_ms, n_kern, top, _) = device_profile(
+        lambda: step(p, state, batch))
+    wall_ms = statistics.median(walls[1:]) * 1e3
+    del p, state
+
+    # microbatch accumulation: the optimizer's state becomes the grads
+    catch = types.SimpleNamespace(
+        init=lambda q: {},
+        update=lambda g, s, q=None: (optim.tree_map(torch.zeros_like, g), g))
+    _, g1, m1 = make_fedsgd_step(loss, catch)(params, {}, batch)
+    _, gm, mm = make_fedsgd_step(loss, catch, microbatches=FEDSGD_M)(
+        params, {}, batch)
+    l1, lm = float(m1["loss"] + m1["aux_loss"]), float(mm["loss"])
+    check(abs(lm - l1) <= 1e-2 * abs(l1),
+          f"first-step loss, {FEDSGD_M} microbatches {lm} vs 1 {l1}")
+    gaps = [float((a - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+            for a, b in zip(optim.tree_leaves(gm), optim.tree_leaves(g1))]
+    check(max(gaps) <= FEDSGD_GRAD_TOL,
+          f"accumulated gradients within 2^-4 of the full batch's by leaf "
+          f"(L2): largest {max(gaps):.3e}")
+    del g1, gm, params
+    torch.cuda.empty_cache()
+    phase(36, f"FedSGD, SmolLM-360M at full width and depth ({n_params} "
+              f"params, bf16, random weights from seed 0, use_kernels off, "
+              f"remat off), {FEDSGD_CLIENTS} clients type2, "
+              f"generate_subsets(n=4, delta=1, x_star=3), batches of "
+              f"{rows} x {FEDSGD_SEQ} by launch.train's composition, adam("
+              f"warmup_cosine(3e-3, 10, {FEDSGD_STEPS}), grad_clip=1.0): "
+              f"losses {[round(x, 4) for x in losses]}, step wall first "
+              f"{step_s[0]:.3f} s then median "
+              f"{statistics.median(step_s[1:]) * 1e3:.1f} ms, {tok_s:.0f} "
+              f"tokens/s, peak device memory {peak:.2f} GB; fixed batch of "
+              f"{FEDSGD_B} x {FEDSGD_SEQ}: loss {fixed[0]:.4f} -> "
+              f"{fixed[-1]:.4f}, median step {wall_ms:.1f} ms, one step "
+              f"under the profiler {dev_ms:.1f} ms of device time in "
+              f"{n_kern} kernels = busy {dev_ms / wall_ms:.1%} of a step; "
+              f"top: {top}; {FEDSGD_M} microbatches vs 1: loss {lm:.5f} vs "
+              f"{l1:.5f}, largest gradient gap by leaf {max(gaps):.3e} "
+              f"(bound {FEDSGD_GRAD_TOL:g}); launches {launches}")
+    return launches
+
+
+def train_entry_point() -> None:
+    """Phase 37: ``python -m repro_torch.launch.train --steps 20`` at its
+    defaults, as a user runs it."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--steps", "20"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"launch.train exit {out.returncode}: "
+          f"{out.stdout[-1500:]} {out.stderr[-3000:]}")
+    m = re.search(r"final loss ([-\d.]+) \(first ([-\d.]+)\)", out.stdout)
+    check(m is not None and float(m[1]) < float(m[2]),
+          f"the final loss is below the first: {out.stdout[-500:]}")
+    lines = out.stdout.strip().splitlines()
+    phase(37, f"python -m repro_torch.launch.train --steps 20 (reduced "
+              f"SmolLM-360M, cuda): exit 0 in {time.perf_counter() - t:.1f} "
+              f"s | {lines[0]} | {lines[-1]}")
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3279,9 +3672,15 @@ def main() -> int:
     examples_on_card()
     family_launches = family_full_width()
     family_serve_entry_points()
+    shard_launches = sharded_plane()
+    placement_on_card()
+    fedsgd_launches = fedsgd_full_width()
+    train_entry_point()
     by_path = lambda name: {"launches_by_path": {
         "compressed_resume": resume_launches[name],
-        "lm_full_width": lm_launches[name]}}
+        "lm_full_width": lm_launches[name],
+        "sharded_plane": shard_launches[name],
+        "fedsgd": fedsgd_launches[name]}}
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         record("fedavg_agg_quality", csrc + "fedavg_agg_quality.cu",

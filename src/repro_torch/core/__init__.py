@@ -43,6 +43,9 @@ from .lifecycle import (AsyncTrainer, InFlightError, PendingChunk,
                         dispatch, drain, load_state, resolve_trainer,
                         save_state, single_round_adapter, step, submit)
 from .mkp import MKPResult, solve_mkp, solve_mkp_bnb, solve_mkp_greedy
+from .placement import (PlacementPolicy, available_placement_policies,
+                        placement_policy, register_placement_policy,
+                        resolve_placement_policy)
 from .policy import (SchedulingPolicy, SelectionPolicy,
                      available_scheduling_policies,
                      available_selection_policies,
@@ -93,4 +96,6 @@ __all__ = [
     "ArrivalTrace", "DeviceSpeedProfile", "DiurnalAvailability",
     "HeterogeneousFaultPlan", "OnlineDriver", "TelemetryEvent",
     "TelemetryLog", "WorkloadTrace", "make_workload",
+    "PlacementPolicy", "available_placement_policies", "placement_policy",
+    "register_placement_policy", "resolve_placement_policy",
 ]

@@ -42,9 +42,12 @@ class DeviceDataset(NamedTuple):
     sizes: torch.Tensor      # (n_clients,) int64 true pool sizes
 
     @classmethod
-    def stage(cls, data, parts, device) -> "DeviceDataset":
-        """One-time host->device staging of a partitioned dataset."""
-        pools, sizes = dense_index_pools(parts)
+    def stage(cls, data, parts, device, cap: int | None = None
+              ) -> "DeviceDataset":
+        """One-time host->device staging of a partitioned dataset;
+        ``cap`` fixes the pools' width (:func:`dense_index_pools`, which
+        raises when a client holds more samples)."""
+        pools, sizes = dense_index_pools(parts, cap=cap)
         return cls(torch.as_tensor(np.asarray(data.images), device=device),
                    torch.as_tensor(np.asarray(data.labels, np.int64),
                                    device=device),
@@ -65,7 +68,7 @@ def slot_keys(base_key: torch.Tensor, round_index, slots: torch.Tensor
 
 
 def sample_positions(base_key, round_index, n_slots: int, local_steps: int,
-                     batch_size: int):
+                     batch_size: int, slot_offset: int = 0):
     """Per-slot uniforms: ``(mask_u (*R, K), pos_u (*R, K, E, b))``.
 
     ``mask_u`` drives the dropout draw, ``pos_u`` the batch-position
@@ -73,8 +76,14 @@ def sample_positions(base_key, round_index, n_slots: int, local_steps: int,
     on ``n_slots``, so padding the subset does not perturb the stream.
     ``round_index`` may be a tensor of rounds (shape R), which draws a
     whole chunk at once.
+
+    ``slot_offset`` shifts the slot ids: the client-sharded round scan
+    (``fl.round.make_fl_rounds_scan_sharded``) passes each shard's first
+    global slot, so every shard draws its global slots' stream, the
+    slice ``[o:o + n_slots]`` of an unsharded draw.
     """
-    slots = torch.arange(n_slots, dtype=torch.int64, device=base_key.device)
+    slots = torch.arange(slot_offset, slot_offset + n_slots,
+                         dtype=torch.int64, device=base_key.device)
     ku_kb = trandom.split(slot_keys(base_key, round_index, slots))
     return (trandom.uniform(ku_kb[..., 0, :], ()),
             trandom.uniform(ku_kb[..., 1, :], (local_steps, batch_size)))
@@ -93,6 +102,12 @@ def positions_to_indices(pools, sizes, rows, pos_u):
     rowpools = pools[rows]                                     # (K, cap)
     flat = torch.gather(rowpools, 1, pos.reshape(pos.shape[0], -1))
     return flat.reshape(pos.shape)
+
+
+def to_device(data, device):
+    """A staged dataset (either kind) with every tensor on ``device``;
+    the same tensors where they are there already."""
+    return type(data)(*(t.to(device) for t in data))
 
 
 def gather_batches(data: DeviceDataset, rows, pos_u):
@@ -119,9 +134,11 @@ class DeviceLMDataset(NamedTuple):
     sizes: torch.Tensor      # (n_clients,) int64 true pool sizes
 
     @classmethod
-    def stage(cls, data, parts, device) -> "DeviceLMDataset":
-        """Stage ``data.synthetic.LMData`` (``.tokens``/``.labels``)."""
-        pools, sizes = dense_index_pools(parts)
+    def stage(cls, data, parts, device, cap: int | None = None
+              ) -> "DeviceLMDataset":
+        """Stage ``data.synthetic.LMData`` (``.tokens``/``.labels``);
+        ``cap`` as for :meth:`DeviceDataset.stage`."""
+        pools, sizes = dense_index_pools(parts, cap=cap)
         as_i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64),
                                            device=device)
         return cls(as_i64(data.tokens), as_i64(data.labels), as_i64(pools),

@@ -24,23 +24,32 @@
   a result to the host, so on the card a chunk is enqueued and the
   caller decides when to block.
 
-Both run their convolutions inside :func:`repro_torch.device.conv_numerics`
+- ``make_fl_rounds_scan_sharded``: the same chunk function with the
+  round's client axis split over a mesh's data shards
+  (launch.mesh): each shard trains its K/n clients on its own device,
+  and their weighted sums are added on the mesh's first device, the
+  counterpart of the reference's ``psum``.
+
+- ``make_fedsgd_step``: the datacenter-scale one-local-step equivalent,
+  a data-parallel train step whose per-example weights fold the FedAvg
+  p_k into the loss (launch.train drives it).
+
+The round functions run their convolutions inside
+:func:`repro_torch.device.conv_numerics`
 (full f32, deterministic cuDNN algorithms), so rounds repeat bit for bit
 on the card and the caller's cuDNN settings are left as they were.
 
-Parameters are flat ``dict[str, Tensor]`` (models.cnn). Leaves are
+Their parameters are flat ``dict[str, Tensor]`` (models.cnn). Leaves are
 ordered by sorted name, which is JAX's pytree order for the reference's
 nested dicts (``b`` before ``w``), so the flattened (K, P) matrix has
 the reference's column order.
-
-Not ported yet (ROADMAP.md Queue 1): the client-sharded scan and the
-FedSGD step.
 """
 from __future__ import annotations
 
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.device import conv_numerics
@@ -48,7 +57,8 @@ from repro_torch.fl import device_data
 from repro_torch.fl.compression import (CompressionSpec, aggregate_compressed,
                                         bytes_per_client)
 from repro_torch.kernels import ops as kops
-from repro_torch.optim import apply_updates
+from repro_torch.optim import apply_updates, tree_leaves, tree_map
+from repro_torch.sharding import specs as sharding_specs
 
 
 def flatten_stacked(stacked: dict[str, torch.Tensor]):
@@ -98,9 +108,11 @@ def tree_weighted_sum(trees_stacked: dict, weights: torch.Tensor,
 
 
 def _tree_dot(a: dict, b: dict) -> torch.Tensor:
-    """Σ over leaves (sorted names, JAX's leaf order) of ⟨a, b⟩ in f32."""
-    return sum(torch.dot(a[n].reshape(-1).to(torch.float32),
-                         b[n].reshape(-1).to(torch.float32))
+    """Σ over leaves (sorted names, JAX's leaf order) of ⟨a, b⟩ in f32,
+    each leaf's products summed by ``torch.sum``'s pairwise reduction
+    (a CPU BLAS dot sums a million f32 products in a few running
+    partials: 1e-4 off in a CIFAR_CNN cosine)."""
+    return sum(torch.sum(a[n].to(torch.float32) * b[n].to(torch.float32))
                for n in sorted(a))
 
 
@@ -304,3 +316,192 @@ def make_fl_rounds_scan(loss_fn: Callable, local_lr: float = 0.05,
                        for k in infos[0]}
 
     return chunk_fn
+
+
+def shard_devices(mesh) -> list:
+    """Each data shard's device, in the reference's shard order (row-major
+    over the data axes): the shard's first device along the other axes,
+    which in the reference hold replicas of the same computation."""
+    dax = sharding_specs.data_axes(mesh)
+    lead = [mesh.axis_names.index(a) for a in dax if a in mesh.axis_names]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in lead]
+    devs = np.transpose(mesh.devices, lead + rest)
+    n = sharding_specs.mesh_axis_size(mesh, dax)
+    return list(devs.reshape(n, -1)[:, 0])
+
+
+def _psum(values: list, home) -> torch.Tensor:
+    """Σ over shards, added on ``home`` in shard order."""
+    total = values[0].to(home)
+    for v in values[1:]:
+        total = total + v.to(home)
+    return total
+
+
+def _on_devices(tree: dict, devs) -> dict:
+    """One copy of a flat tensor dict per distinct device (``Tensor.to``
+    keeps the tensors that are there already)."""
+    return {d: {n: v.to(d) for n, v in tree.items()}
+            for d in dict.fromkeys(devs)}
+
+
+def make_fl_rounds_scan_sharded(loss_fn: Callable, local_lr: float = 0.05,
+                                local_steps: int = 1, batch_size: int = 16,
+                                server_lr: float = 1.0,
+                                gather_fn: Callable | None = None,
+                                mesh=None):
+    """Client-sharded variant of :func:`make_fl_rounds_scan`: each round's
+    client axis K is split over the mesh's data axes, each shard trains
+    its K/n clients (the same vmapped client update) on its device, and
+    the weighted aggregate Δ_t, the weight sum and the weighted loss sum
+    are added over the shards on the mesh's first device, in shard order
+    (the reference's ``psum``); the totals go back to every shard.
+
+    Same ``chunk_fn(params, data, schedule, base_key) -> (params, info)``
+    contract and slot-keyed randomness as the unsharded scan: shard s
+    draws its global slots through ``sample_positions(slot_offset=s*K/n)``,
+    so batches, masks and deltas are those of the unsharded plane and
+    only the f32 order of the sums differs. ``data`` is one staged
+    dataset, or a dict holding one copy per distinct mesh device
+    (``DeviceFLSim`` stages it so); ``params`` and every output live on
+    the mesh's first device; masks, ``q_values`` and ``client_losses``
+    come back in global slot order. Each shard's cosines q are taken
+    against the global aggregate (the plain weighted sum and plain
+    cosines, as the reference's sharded scan computes them). K must
+    divide by the shard count (``ValueError`` otherwise; ``DeviceFLSim``
+    pads K up).
+
+    ``mesh=None`` builds :func:`repro_torch.launch.mesh.make_host_mesh`
+    (every visible CUDA device on "data"). Scope, as the reference's:
+    the uncompressed plain-SGD-server plane, no simulated dropout (its
+    all-dropped fallback is global across K); fault-mode ``arrival``
+    masks are split with the schedule.
+    """
+    from repro_torch.launch.mesh import make_host_mesh
+    if mesh is None:
+        mesh = make_host_mesh()
+    devs = shard_devices(mesh)
+    n_shard, home = len(devs), devs[0]
+    gather = device_data.gather_batches if gather_fn is None else gather_fn
+    client_update = torch.func.vmap(_make_client_update(loss_fn, local_lr),
+                                    in_dims=(None, 0))
+
+    @torch.no_grad()
+    def chunk_fn(params, data, schedule, base_key):
+        S, K = schedule["rows"].shape
+        if K % n_shard:
+            raise ValueError(
+                f"client axis K={K} must be divisible by the data-axis "
+                f"size {n_shard}; pad subsets (pad_subset_to) up")
+        K_local = K // n_shard
+        shards = []
+        for s, dev in enumerate(devs):
+            cols = slice(s * K_local, (s + 1) * K_local)
+            sched = {k: (v if k == "round_ids" else v[:, cols]).to(dev)
+                     for k, v in schedule.items()}
+            staged = data[dev] if isinstance(data, dict) \
+                else device_data.to_device(data, dev)
+            mask_u, pos_u = device_data.sample_positions(
+                base_key.to(dev), sched["round_ids"], K_local, local_steps,
+                batch_size, slot_offset=s * K_local)
+            shards.append((dev, sched, staged, mask_u, pos_u))
+        infos = []
+        for t in range(S):
+            on = _on_devices(params, devs)
+            local = []
+            for dev, sched, staged, mask_u, pos_u in shards:
+                rows = sched["rows"][t]
+                active = sched["active"][t] * (staged.sizes[rows] > 0)
+                mask = device_data.dropout_mask(
+                    mask_u[t], active, 0.0,
+                    arrival=sched["arrival"][t] if "arrival" in sched
+                    else None)
+                with conv_numerics():
+                    deltas, losses = client_update(
+                        on[dev], gather(staged, rows, pos_u[t]))
+                local.append((mask, deltas, losses,
+                              sched["weights"][t] * mask))
+            wsum = _psum([w.sum() for *_, w in local], home)
+            sums, loss_sums = [], []
+            for (mask, deltas, losses, w), dev in zip(local, devs):
+                w = w / torch.clamp_min(wsum.to(dev), 1e-9)
+                sums.append(tree_weighted_sum(deltas, w))
+                loss_sums.append((losses * w).sum())
+            agg = {n: _psum([a[n] for a in sums], home) for n in sums[0]}
+            agg_on = _on_devices(agg, devs)
+            q = [(_quality_cosines(deltas, agg_on[dev]) * mask).to(home)
+                 for (mask, deltas, _, _), dev in zip(local, devs)]
+            params = {n: (p - server_lr * agg[n]).to(p.dtype)
+                      for n, p in params.items()}
+            infos.append({
+                "masks": torch.cat([m.to(home) for m, *_ in local]),
+                "q_values": torch.cat(q),
+                "client_losses": torch.cat([l.to(home)
+                                            for _, _, l, _ in local]),
+                "mean_loss": _psum(loss_sums, home)})
+        return params, {k: torch.stack([i[k] for i in infos])
+                        for k in infos[0]}
+
+    return chunk_fn
+
+
+def make_fedsgd_step(loss_fn: Callable, optimizer, microbatches: int = 1,
+                     unroll_microbatches: bool = False):
+    """Datacenter-scale train step:
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.
+
+    ``batch`` carries per-example ``weights`` = p_{k(example)} /
+    examples_of_k, so the weighted loss's gradient is the paper's
+    Δ_t = Σ_k p_k Δ_t^(k) for one local step. Gradients come from
+    autograd over the whole tree (``loss_fn(params, batch) -> (loss,
+    metrics)``), then ``optimizer.update`` and ``apply_updates``. The
+    model should run its plain path (``use_kernels=False``): no kernel
+    has a backward.
+
+    ``microbatches > 1``: gradient accumulation. The batch splits along
+    dim 0 into M microbatches taken in turn; each microbatch's gradients
+    are cast to f32 and scaled by its share of the weights (1/M without
+    weights), then summed, so the accumulated gradient matches the full
+    batch's; ``metrics`` is then ``{"loss": Σ scaled losses}``.
+    ``unroll_microbatches`` takes the same Python loop here (the
+    reference's choice between ``lax.scan`` and an unrolled loop has no
+    counterpart in eager PyTorch).
+    """
+
+    def grads_of(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(live)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(live, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        by_id = {id(p): torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)}
+        metrics = {k: m.detach() if torch.is_tensor(m) else m
+                   for k, m in metrics.items()}
+        return loss.detach(), metrics, tree_map(lambda p: by_id[id(p)], live)
+
+    def train_step(params, opt_state, batch):
+        if microbatches <= 1:
+            loss, metrics, grads = grads_of(params, batch)
+        else:
+            split = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            w_tot = torch.clamp_min(batch["weights"].sum(), 1e-9) \
+                if "weights" in batch else None
+            loss, grads = 0.0, None
+            for i in range(microbatches):
+                mb = {k: v[i] for k, v in split.items()}
+                l, _, g = grads_of(params, mb)
+                # each microbatch's loss is weight-normalised inside
+                # loss_fn: rescale so the sum matches the full batch
+                scale = mb["weights"].sum() / w_tot if w_tot is not None \
+                    else 1.0 / microbatches
+                g = tree_map(lambda x: x.to(torch.float32) * scale, g)
+                loss = loss + l * scale
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+            metrics = {"loss": loss}
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, metrics
+
+    return train_step

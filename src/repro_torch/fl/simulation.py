@@ -32,8 +32,10 @@ schedules, masks and batches.
 Entry points run on the card: ``device=None`` means ``"cuda"``, and
 without CUDA they raise. Pass ``device="cpu"`` to run on the CPU.
 
-Not ported yet (ROADMAP.md Queue 1): the mesh-sharded scan and device
-placement.
+Placement: ``DeviceFLSim(mesh=...)`` splits each round's clients over a
+mesh's data shards (fl.round.make_fl_rounds_scan_sharded), and
+``DeviceFLSim.place_on(i)`` is the ``ServiceScheduler``'s placement hook,
+which moves a trainer's state to ``cuda:i``.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ from repro_torch.data.synthetic import ClassificationData
 from repro_torch.device import conv_numerics, resolve_device
 from repro_torch.fl import device_data
 from repro_torch.fl.partition import client_histograms
-from repro_torch.fl.round import make_fl_round, make_fl_rounds_scan
+from repro_torch.fl.round import (make_fl_round, make_fl_rounds_scan,
+                                  make_fl_rounds_scan_sharded, shard_devices)
 from repro_torch.models import cnn
 
 
@@ -82,6 +85,20 @@ def pool_from_partition(labels, parts, num_classes,
     scores[:, 8] = data_dist_score(H)
     costs = linear_cost(overall_score(scores), 2.0, 5.0, integer=True)
     return ClientPoolState(np.arange(n, dtype=np.int64), scores, H, costs)
+
+
+def _to(tree, device):
+    """Every tensor of nested dicts, lists and staged datasets moved to
+    ``device``; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return device_data.to_device(tree, device)
 
 
 class _ReferenceKeys:
@@ -271,6 +288,19 @@ class DeviceFLSim(_EvalCache):
     active plan the lifecycle hands ``dispatch_rounds`` the rounds'
     arrival masks, which ride the schedule as ``"arrival"``.
 
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, e.g.
+    ``make_host_mesh()``) swaps in the client-sharded chunk function:
+    each round's client axis splits over the mesh's data shards, whose
+    weighted sums are added on the mesh's first device, which is then
+    the trainer's ``device`` (leave ``device`` at ``None``). The static
+    K is rounded up to a multiple of the shard count, and the dataset is
+    staged once on each distinct mesh device. Out of the sharded plane's
+    scope, as in the reference: compression, server optimizers,
+    simulated dropout.
+
+    ``place_on(i)`` moves the trainer to ``cuda:i`` (the
+    ``ServiceScheduler``'s placement hook).
+
     ``device=None`` runs on ``cuda`` and raises without it. Parameters
     are drawn from ``torch.Generator().manual_seed(sim.seed)``; to start
     from the reference's parameters, assign
@@ -287,6 +317,15 @@ class DeviceFLSim(_EvalCache):
     # the lifecycle's fault mode may pass per-round arrival masks
     accepts_arrivals = True
 
+    # class-level defaults, so subclasses with their own __init__
+    # (TransformerFLSim) stay on the unsharded plane: no mesh, one shard
+    _mesh = None
+    _shards = 1
+
+    # what place_on moves (a subclass adds its own device state)
+    _PLACED = ("params", "opt_state", "data", "base_key", "_test_images",
+               "_test_labels")
+
     def __init__(self, model_cfg: cnn.CNNConfig, data: ClassificationData,
                  parts: list[np.ndarray], test: ClassificationData,
                  sim: SimConfig = SimConfig(), impl: str = "auto",
@@ -298,8 +337,18 @@ class DeviceFLSim(_EvalCache):
             if compression is not None or server_opt is not None:
                 raise ValueError("mesh-sharded DeviceFLSim supports the "
                                  "uncompressed plain-SGD plane only")
-            raise NotImplementedError("the mesh-sharded round scan is not "
-                                      "ported yet: ROADMAP.md Queue 1 item 8")
+            if sim.dropout_rate:
+                raise ValueError("mesh-sharded DeviceFLSim does not "
+                                 "simulate client dropout (the all-"
+                                 "dropped fallback is global across K); "
+                                 "set sim.dropout_rate = 0.0")
+            if device is not None:
+                raise ValueError("mesh-sharded DeviceFLSim runs on the "
+                                 "mesh's first device: leave device=None")
+            devs = shard_devices(mesh)
+            device = devs[0]
+            self._mesh = mesh
+            self._shards = len(devs)
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.pad_subset_to = pad_subset_to
@@ -311,23 +360,60 @@ class DeviceFLSim(_EvalCache):
             else optim.make(server_opt, sim.server_lr)
         self.opt_state = None if self._server_opt is None \
             else self._server_opt.init(self.params)
-        self.data = device_data.DeviceDataset.stage(data, parts, self.device)
-        self.chunk_fn = make_fl_rounds_scan(
-            lambda p, b: cnn.loss_fn(model_cfg, p, b, impl=impl),
-            local_lr=sim.local_lr, local_steps=sim.local_steps,
-            batch_size=sim.batch_size, server_lr=sim.server_lr,
-            dropout_rate=sim.dropout_rate, fused_quality=fused_quality,
-            compression=compression, server_opt=self._server_opt)
+        loss = lambda p, b: cnn.loss_fn(model_cfg, p, b, impl=impl)
+        if mesh is None:
+            self.data = device_data.DeviceDataset.stage(data, parts,
+                                                        self.device)
+            self.chunk_fn = make_fl_rounds_scan(
+                loss, local_lr=sim.local_lr, local_steps=sim.local_steps,
+                batch_size=sim.batch_size, server_lr=sim.server_lr,
+                dropout_rate=sim.dropout_rate, fused_quality=fused_quality,
+                compression=compression, server_opt=self._server_opt)
+        else:
+            # one copy a distinct device: a mesh that repeats a device
+            # shares it
+            self.data = {d: device_data.DeviceDataset.stage(data, parts, d)
+                         for d in dict.fromkeys(shard_devices(mesh))}
+            self.chunk_fn = make_fl_rounds_scan_sharded(
+                loss, local_lr=sim.local_lr, local_steps=sim.local_steps,
+                batch_size=sim.batch_size, server_lr=sim.server_lr,
+                mesh=mesh)
         self._init_eval(model_cfg, test, sim, impl=impl)
 
     def _k_pad(self, k: int) -> int:
         """Padded client axis for a segment whose largest subset has k
         clients: next multiple of 2 (fewer distinct shapes), capped at
-        pad_subset_to but never below k."""
+        pad_subset_to but never below k; then rounded up to a multiple
+        of the shard count (each shard takes K/n client slots; the
+        reference rounds only for more than 2 shards, and so refuses
+        an odd cap on 2)."""
         pad = -(-k // 2) * 2
         if self.pad_subset_to is not None:
             pad = min(pad, self.pad_subset_to)
-        return max(pad, k)
+        pad = max(pad, k)
+        return -(-pad // self._shards) * self._shards
+
+    def place_on(self, device_index: int) -> None:
+        """``ServiceScheduler`` placement hook: move the server state,
+        the optimizer state, the staged dataset, ``base_key`` and the
+        eval cache to ``cuda:<device_index>``, where every later chunk
+        then runs. A no-op in mesh-sharded mode (the sharded scan already
+        spans its devices). A CPU trainer has one device, index 0;
+        nothing falls back to another device."""
+        if self._mesh is not None:
+            return
+        if self.device.type != "cuda":
+            if device_index != 0:
+                raise ValueError(f"a {self.device.type} trainer has one "
+                                 f"device (index 0), not {device_index}")
+            return
+        if not 0 <= device_index < torch.cuda.device_count():
+            raise ValueError(f"device index {device_index}: "
+                             f"{torch.cuda.device_count()} CUDA device(s)")
+        dev = torch.device("cuda", device_index)
+        for name in self._PLACED:
+            setattr(self, name, _to(getattr(self, name), dev))
+        self.device = dev
 
     def _segment(self, sizes: list[int]) -> list[int]:
         """Optimal consecutive segmentation of one chunk (DP): minimize

@@ -138,6 +138,10 @@ class TransformerFLSim(DeviceFLSim):
     shapes, so it need not be rebuilt).
     """
 
+    # place_on moves the frozen backbone and the test sequences too
+    _PLACED = ("params", "opt_state", "data", "base_key", "base_params",
+               "_test_seqs")
+
     def __init__(self, model_cfg: ModelConfig, data: LMData, parts,
                  test: LMData, sim: SimConfig = SimConfig(),
                  lora: LoraConfig = LoraConfig(),

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..optim import tree_map
 from . import moe, ssm
 from .common import ModelConfig
 from .layers import (apply_norm, attn_params, cross_attention, dense_init,
@@ -88,15 +89,6 @@ def _routes(cfg: ModelConfig, flash_fn, swiglu_fn, kernels):
         from ..kernels import ops as kernels
     return (flash_fn or kernels.flash_attention_bshd,
             swiglu_fn or kernels.swiglu, kernels.mlstm_scan_bshd, kernels)
-
-
-def tree_map(fn, tree):
-    """``fn`` over every tensor leaf of nested dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
-"""Optimizers in PyTorch over flat parameter dicts: SGD, momentum, Adam,
+"""Optimizers in PyTorch over trees of tensors: SGD, momentum, Adam,
 AdamW, and the server-side federated pair FedAdam/FedYogi.
 
 The interface mirrors the JAX package's (and optax's): ``init(params)
 -> state``, ``update(grads, state, params) -> (updates, state)``; apply
 with :func:`apply_updates`. Parameters, gradients and updates are
-``dict[str, Tensor]``; a state is a dict holding an int32 ``count`` and
-f32 moment dicts (``mu``, or ``m`` and ``v``) on the parameters' device.
-Every function returns new tensors and changes none in place.
+nested dicts and lists of tensors (a round plane's flat
+``dict[str, Tensor]``, or a transformer's tree); a state is a dict
+holding an int32 ``count`` and f32 moment trees (``mu``, or ``m`` and
+``v``) on the parameters' device. Every function returns new tensors and
+changes none in place.
 """
 from __future__ import annotations
 
@@ -20,21 +22,46 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-def apply_updates(params: dict, updates: dict) -> dict:
-    return {n: (p + updates[n]).to(p.dtype) for n, p in params.items()}
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts and lists, with the
+    matching leaves of the ``rest`` trees as further arguments (a
+    ``None`` rest tree passes ``None``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(None if r is None else r[k]
+                                     for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(None if r is None else r[i]
+                                             for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves in JAX's order: dict keys sorted, lists in
+    order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
 def _scalar_lr(lr, count):
     return lr(count) if callable(lr) else lr
 
 
-def _zeros_f32(params: dict) -> dict:
-    return {n: torch.zeros_like(p, dtype=torch.float32)
-            for n, p in params.items()}
+def _zeros_f32(params):
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
-def _count0(params: dict) -> torch.Tensor:
-    dev = next(iter(params.values())).device
+def _count0(params) -> torch.Tensor:
+    dev = tree_leaves(params)[0].device
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
@@ -49,15 +76,15 @@ def sgd(lr, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
         count = state["count"] + 1
         step = _scalar_lr(lr, count)
         if momentum:
-            mu = {n: momentum * m + grads[n].to(torch.float32)
-                  for n, m in state["mu"].items()}
+            mu = tree_map(lambda m, g: momentum * m + g.to(torch.float32),
+                          state["mu"], grads)
             if nesterov:
-                upd = {n: -(step * (momentum * m + grads[n]))
-                       for n, m in mu.items()}
+                upd = tree_map(lambda m, g: -(step * (momentum * m + g)),
+                               mu, grads)
             else:
-                upd = {n: -step * m for n, m in mu.items()}
+                upd = tree_map(lambda m: -step * m, mu)
             return upd, {"count": count, "mu": mu}
-        return {n: -step * g for n, g in grads.items()}, {"count": count}
+        return tree_map(lambda g: -step * g, grads), {"count": count}
 
     return Optimizer(init, update)
 
@@ -77,21 +104,23 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             gnorm = global_norm(grads)
             scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-9),
                                     1.0)
-            grads = {n: g * scale for n, g in grads.items()}
-        m = {n: b1 * m_ + (1 - b1) * grads[n].to(torch.float32)
-             for n, m_ in state["m"].items()}
-        v = {n: b2 * v_ + (1 - b2) * torch.square(grads[n].to(torch.float32))
-             for n, v_ in state["v"].items()}
+            # the f32 scale promotes a bf16 gradient to f32, as in jnp
+            grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_
+                     + (1 - b2) * torch.square(g.to(torch.float32)),
+                     state["v"], grads)
         c1 = 1 - b1 ** count.to(torch.float32)
         c2 = 1 - b2 ** count.to(torch.float32)
 
-        def upd(n):
-            u = -step * (m[n] / c1) / (torch.sqrt(v[n] / c2) + eps)
-            if weight_decay and params is not None:
-                u = u - step * weight_decay * params[n].to(torch.float32)
+        def upd(m_, v_, p):
+            u = -step * (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+            if weight_decay and p is not None:
+                u = u - step * weight_decay * p.to(torch.float32)
             return u
 
-        return {n: upd(n) for n in m}, {"count": count, "m": m, "v": v}
+        return tree_map(upd, m, v, params), {"count": count, "m": m, "v": v}
 
     return Optimizer(init, update)
 
@@ -123,10 +152,11 @@ def _fedopt(lr, b1: float, b2: float, eps: float, yogi: bool) -> Optimizer:
     def update(grads, state, params=None):
         count = state["count"] + 1
         step = _scalar_lr(lr, count)
-        m = {n: b1 * m_ + (1 - b1) * grads[n].to(torch.float32)
-             for n, m_ in state["m"].items()}
-        v = {n: vupd(v_, grads[n]) for n, v_ in state["v"].items()}
-        updates = {n: -step * m[n] / (torch.sqrt(v[n]) + eps) for n in m}
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
+                     state["m"], grads)
+        v = tree_map(vupd, state["v"], grads)
+        updates = tree_map(lambda m_, v_: -step * m_ / (torch.sqrt(v_) + eps),
+                           m, v)
         return updates, {"count": count, "m": m, "v": v}
 
     return Optimizer(init, update)
@@ -144,9 +174,9 @@ def fedyogi(lr, b1: float = 0.9, b2: float = 0.99,
     return _fedopt(lr, b1, b2, eps, yogi=True)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.values()))
+                          for x in tree_leaves(tree)))
 
 
 GETTERS = {"sgd": sgd, "adam": adam, "adamw": adamw,

@@ -55,6 +55,10 @@ gates); a bf16 output, rounded once from f32 on both sides, within one
 bf16 ulp (rtol 2**-7) and the same atol. The chunked route (bf16) takes
 each f32 operand of a product as three exact bf16 terms on the tensor
 cores, summed in f32, so it is held to the same tolerances.
+
+The client-sharded round scan on 2 shards of cuda:0 is held to the
+unsharded plane as the JAX package holds its own: masks exact, q,
+losses and parameters within rtol 1e-3 / atol 1e-4 after four rounds.
 """
 import dataclasses
 
@@ -1661,3 +1665,46 @@ def test_resume_reproduces_rounds_on_the_card(cuda, comp, tmp_path):
         assert torch.equal(x, fresh.params[k]), k
     assert torch.equal(ref_trainer.opt_state["count"],
                        fresh.opt_state["count"])
+
+
+def test_two_shard_scan_matches_unsharded_on_the_card(cuda):
+    """The client-sharded round scan on 2 shards of cuda:0 against the
+    unsharded device plane (which aggregates through the
+    ``fedavg_agg_quality`` kernel), MNIST_CNN, four rounds from one
+    seed: masks exact; q, losses and parameters within rtol 1e-3 / atol
+    1e-4, the JAX package's bounds for its own sharded scan; the sharded
+    plane launches no kernel. ``place_on(0)`` leaves a run bit-equal;
+    an index past the cards raises."""
+    from repro_torch.fl.simulation import DeviceFLSim, SimConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    data = make_classification_data("mnist", 600, seed=0)
+    parts = partition_labels(data.labels, 8, "type1", 10, seed=0)
+    test = make_classification_data("mnist", 100, seed=1)
+    sim = SimConfig(batch_size=8, local_steps=2, eval_every=1000,
+                    dropout_rate=0.0, seed=0)
+    subsets = [[0, 1, 2], [3, 4, 5, 6], [7, 0, 1], [2, 3, 4]]
+    weights = [np.full(len(s), 1.0 / len(s)) for s in subsets]
+    make = lambda **kw: DeviceFLSim(cnn.MNIST_CNN, data, parts, test, sim,
+                                    pad_subset_to=4, **kw)
+    plain, placed = make(device=cuda), make(device=cuda)
+    sharded = make(mesh=make_host_mesh("cuda:0", 2))
+    want = plain.run_rounds(0, subsets, weights)
+    before = dict(ops.LAUNCHES)
+    got = sharded.run_rounds(0, subsets, weights)
+    assert ops.LAUNCHES == before
+    placed.place_on(0)
+    again = placed.run_rounds(0, subsets, weights)
+    for (ma, qa, meta), (mb, qb, metb), (mc, qc, metc) in zip(want, got,
+                                                               again):
+        np.testing.assert_array_equal(ma, mb)
+        np.testing.assert_allclose(qb, qa, rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(metb["loss"], meta["loss"], rtol=1e-3)
+        np.testing.assert_array_equal(ma, mc)
+        np.testing.assert_array_equal(qa, qc)
+        assert meta == metc
+    for k, x in plain.params.items():
+        torch.testing.assert_close(sharded.params[k], x, rtol=1e-3,
+                                   atol=1e-4)
+        assert torch.equal(placed.params[k], x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        plain.place_on(torch.cuda.device_count())

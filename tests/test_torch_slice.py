@@ -134,22 +134,26 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_paths_raise(tmp_path):
-    """What this port still cuts raises, naming its ROADMAP item: the
-    mesh. A mesh with compression or a server optimizer is refused as the
-    reference refuses it. Compression and server optimizers alone build a
-    trainer, and the checkpoint files, once cut, now save and load.
+    """Nothing of the slice is cut any more: a mesh builds the sharded
+    trainer (tests/test_torch_placement.py holds it to the reference),
+    and a mesh with compression or a server optimizer is refused as the
+    reference refuses it. Compression and server optimizers alone build
+    a trainer, and the checkpoint files save and load.
     (The host-loop plane, fault plans and arrival masks run:
     tests/test_torch_host_plane.py and tests/test_torch_faults.py; the
     checkpoint files: tests/test_torch_checkpoint.py.)"""
+    from repro_torch.launch.mesh import make_host_mesh
     data = make_classification_data("mnist", 40, seed=0)
     parts = partition_labels(data.labels, 4, "type2", 10, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
-                               device="cpu", mesh=object())
+    sharded = simulation.DeviceFLSim(
+        cnn.MNIST_CNN, data, parts, data,
+        simulation.SimConfig(dropout_rate=0.0),
+        mesh=make_host_mesh("cpu", 2))
+    assert sharded.device == torch.device("cpu")
     for kw in ({"compression": "int8"}, {"server_opt": "fedadam"}):
         with pytest.raises(ValueError, match="mesh"):
             simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
-                                   device="cpu", mesh=object(), **kw)
+                                   mesh=object(), **kw)
     sim = simulation.DeviceFLSim(cnn.MNIST_CNN, data, parts, data,
                                  device="cpu", compression="topk:0.1+int8",
                                  server_opt="fedyogi")
