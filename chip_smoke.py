@@ -3634,6 +3634,266 @@ def train_entry_point() -> None:
               f"s | {lines[0]} | {lines[-1]}")
 
 
+# The input steps at SmolLM-360M's full width (phase 38): phase 15's
+# serve shape, and one train_4k step of this many sequences of 4,096.
+STEP_TRAIN_B = 2
+# The dry-run on the host (phase 40): (arch, shape, extra CLI arguments,
+# the artifact's mesh name).
+DRYRUN_RUNS = (("smollm-360m", "train_4k", (), "16x16"),
+               ("smollm-360m", "train_4k", ("--multi-pod",), "2x16x16"),
+               ("qwen2-moe-a2.7b", "decode_32k", ("--opt", "1"),
+                "16x16-opt1"))
+H100_HBM_GB = 80
+
+
+def input_steps_full_width() -> dict:
+    """Phase 38: ``launch.inputs``' step builders at SmolLM-360M's full
+    width and depth in bf16. ``make_prefill_step`` / ``make_serve_step``
+    with the kernels at phase 15's shape (counts set to 0 just before,
+    read just after), logits bit-equal to phase 15's loop on the same
+    weights; one ``make_train_step`` step at train_4k's config (remat on)
+    against ``make_fedsgd_step`` with the same optimizer, and the peak
+    memory with and without remat. Returns the serve launches."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.fl.round import make_fedsgd_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import inputs as I
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), use_kernels=True)
+    check((cfg.num_layers, cfg.d_model, cfg.dtype) == (32, SERVE_D,
+                                                       "bfloat16"),
+          "SmolLM-360M at full width and depth, bf16")
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)),
+        dtype=torch.int32, device="cuda")
+    greedy = lambda lg: lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+    def direct(new):                     # phase 15's loop
+        logits, cache, _ = T.prefill(cfg, params, prompts)
+        cache = T.grow_cache(cfg, cache, new)
+        out = [logits]
+        for step in range(new - 1):
+            logits, cache = T.decode_step(cfg, params, greedy(out[-1]),
+                                          cache, SERVE_PROMPT + step)
+            out.append(logits)
+        return out
+
+    def stepped(new):                    # through the step builders
+        prefill_step = I.make_prefill_step(cfg)
+        serve_step = I.make_serve_step(cfg)
+        logits, cache = prefill_step(params, {"tokens": prompts})
+        cache = T.grow_cache(cfg, cache, new)
+        out = [logits]
+        for step in range(new - 1):
+            logits, cache = serve_step(
+                params, {"tokens": greedy(out[-1]),
+                         "index": SERVE_PROMPT + step}, cache)
+            out.append(logits)
+        return out
+
+    want = direct(SERVE_NEW)
+    stepped(2)                  # warm-up, before the counts are set to 0
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    got = stepped(SERVE_NEW)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.LAUNCHES.items() if c}
+    L = cfg.num_layers
+    check(counts == {"flash_attention": L, "swiglu": L * SERVE_NEW,
+                     "rmsnorm": (2 * L + 1) * SERVE_NEW},
+          f"input steps launches {counts}")
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "step builders' logits bit-equal to phase 15's loop")
+    del want, got
+
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    S = I.SHAPES["train_4k"][0]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (STEP_TRAIN_B, S + 1)),
+                           dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "weights": torch.full((STEP_TRAIN_B,), 1.0 / STEP_TRAIN_B,
+                                   device="cuda")}
+
+    def one_step(step, opt):
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del state, m
+        torch.cuda.empty_cache()
+        return loss, peak, wall
+
+    tcfg = I.shape_config(plain, "train_4k")
+    check(tcfg.remat, "train_4k's config takes remat")
+    step, opt = I.make_train_step(tcfg)
+    loss, peak, wall = one_step(step, opt)
+    check(np.isfinite(loss), f"finite train_4k loss {loss}")
+    same = make_fedsgd_step(functools.partial(T.loss_fn, tcfg),
+                            adam(1e-4, grad_clip=1.0))
+    loss_same = one_step(same, opt)[0]
+    check(loss_same == loss, f"make_train_step loss {loss} == "
+          f"make_fedsgd_step's {loss_same}")
+    ncfg = I.shape_config(plain, "train_4k", remat=False)
+    try:
+        loss_n, peak_n, wall_n = one_step(I.make_train_step(ncfg)[0], opt)
+        check(loss_n == loss, f"loss without remat {loss_n} == {loss}")
+        no_remat = (f"without remat: loss equal, peak {peak_n:.2f} GB, "
+                    f"wall {wall_n:.2f} s")
+    except torch.cuda.OutOfMemoryError:
+        no_remat = "without remat: out of memory"
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(38, f"launch.inputs step builders, {cfg.name} at full width and "
+              f"depth, bf16, random weights from seed 0: make_prefill_step "
+              f"+ {SERVE_NEW - 1} make_serve_step calls on {SERVE_B} x "
+              f"{SERVE_PROMPT} prompts with use_kernels: launches {counts}, "
+              f"logits bit-equal to phase 15's loop at every step; "
+              f"make_train_step at train_4k's config (remat on, use_kernels "
+              f"off), {STEP_TRAIN_B} x {S} tokens: loss {loss:.5f} "
+              f"(make_fedsgd_step with the same optimizer: equal), peak "
+              f"{peak:.2f} GB above the weights, wall {wall:.2f} s; "
+              f"{no_remat}")
+    return counts
+
+
+def cuda_event_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` calls of ``fn``'s time between two CUDA
+    events, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def roofline_on_card() -> None:
+    """Phase 39: the dry-run's roofline held against the card. The trace
+    of SmolLM-360M's plain prefill at phase 15's 8 x 1,024 on a 1x1 mesh
+    counts exactly the flops ``FlopCounterMode`` counts over the real
+    plain prefill on the card; the kernel and plain prefills (CUDA
+    events, median of 5) each take at least the trace's ``compute_s``."""
+    import gc
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import transformer as T
+    plain = get_config(SERVE_ARCH)
+    check(not plain.use_kernels, "the dry-run traces the plain path")
+    shape = f"prefill_{SERVE_B}x{SERVE_PROMPT}"
+    I.SHAPES[shape] = (SERVE_PROMPT, SERVE_B, "prefill")
+    try:
+        t = time.perf_counter()
+        traced = D.trace_step(plain, shape, make_production_mesh(shape=(1, 1)))
+        trace_s = time.perf_counter() - t
+        mf = I.model_flops_for(plain, shape)
+    finally:
+        del I.SHAPES[shape]
+    terms = R.derive_terms({"flops": traced["flops"],
+                            "bytes accessed": traced["bytes_accessed"]},
+                           traced["coll"], 1, mf)
+    kern = dataclasses.replace(plain, use_kernels=True)
+    params = T.init_params(plain, torch.Generator("cuda").manual_seed(0))
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, plain.vocab_size, (SERVE_B, SERVE_PROMPT)), dtype=torch.int32,
+        device="cuda")
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as fc:
+            T.prefill(plain, params, prompts)
+        real = fc.get_total_flops()
+        check(real == traced["flops"], f"traced prefill flops "
+              f"{traced['flops']} == FlopCounterMode's on the card {real}")
+        ms = {name: cuda_event_ms(lambda c=c: T.prefill(c, params, prompts))
+              for name, c in (("kernels", kern), ("plain", plain))}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    floor_ms = max(terms.compute_s, terms.memory_s) * 1e3
+    for name, v in ms.items():
+        check(v >= terms.compute_s * 1e3, f"{name} prefill {v:.3f} ms >= "
+              f"compute_s {terms.compute_s * 1e3:.3f} ms")
+    phase(39, f"roofline vs the card: SmolLM-360M prefill {SERVE_B} x "
+              f"{SERVE_PROMPT}, bf16, traced on a 1x1 mesh in {trace_s:.1f} "
+              f"s: flops {traced['flops']:.6e} (FlopCounterMode on the card: "
+              f"equal), unfused bytes {traced['bytes_accessed']:.6e}, "
+              f"compute_s {terms.compute_s * 1e3:.4f} ms, memory_s "
+              f"{terms.memory_s * 1e3:.4f} ms (unfused, not held), "
+              f"bottleneck {terms.bottleneck}; CUDA events, median of 5: "
+              f"kernel prefill {ms['kernels']:.3f} ms = "
+              f"{ms['kernels'] / floor_ms:.2f} x max(compute_s, memory_s), "
+              f"plain prefill {ms['plain']:.3f} ms = "
+              f"{ms['plain'] / floor_ms:.2f} x; both >= compute_s")
+
+
+def dryrun_cli() -> None:
+    """Phase 40: ``python -m repro_torch.launch.dryrun`` as a user runs
+    it, three runs at once on the host (the trace needs no card): each
+    artifact ``ok`` with flops > 0 and a bottleneck named."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    lines = []
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for arch, shape, extra, _ in DRYRUN_RUNS:
+            cmd = [sys.executable, "-W", "ignore", "-m",
+                   "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--out", out, *extra]
+            procs.append((time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for (arch, shape, extra, mesh), (t, proc) in zip(DRYRUN_RUNS,
+                                                         procs):
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            wall = time.perf_counter() - t
+            check(proc.returncode == 0, f"dryrun {arch} {shape} {extra} "
+                  f"exit {proc.returncode}: {stdout[-1500:]} "
+                  f"{stderr[-3000:]}")
+            with open(os.path.join(out, f"{arch}__{shape}__{mesh}.json")) \
+                    as f:
+                art = json.load(f)
+            roof = art["roofline"]
+            check(art["ok"] and roof["flops"] > 0 and roof["bottleneck"]
+                  in ("compute", "memory", "collective"),
+                  f"dryrun artifact {arch} {shape} {mesh}: {art}")
+            mem = art["memory"]
+            per_dev = (mem["argument_size_in_bytes"]
+                       + mem["temp_size_in_bytes"]) / 1e9
+            lines.append(
+                f"{arch} {shape} {mesh}: ok, {per_dev:.2f} GB a device of "
+                f"{H100_HBM_GB} GB, flops/dev {roof['flops']:.4e}, compute "
+                f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} "
+                f"s, collective {roof['collective_s']:.4f} s, bottleneck "
+                f"{roof['bottleneck']}, trace {art['trace_s']} s, wall "
+                f"{wall:.1f} s")
+    phase(40, "python -m repro_torch.launch.dryrun on the host, three runs "
+              "at once | " + " | ".join(lines))
+
+
 def record(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3676,6 +3936,9 @@ def main() -> int:
     placement_on_card()
     fedsgd_launches = fedsgd_full_width()
     train_entry_point()
+    step_launches = input_steps_full_width()
+    roofline_on_card()
+    dryrun_cli()
     by_path = lambda name: {"launches_by_path": {
         "compressed_resume": resume_launches[name],
         "lm_full_width": lm_launches[name],
@@ -3720,6 +3983,7 @@ def main() -> int:
                               {**t[name], "launches_by_arch": {
                                   a: c.get(name, 0)
                                   for a, c in by_arch.items()},
+                               "launches_input_steps": step_launches[name],
                                "at_families": fam_kernels[name]}))
     records.append(record(
         "mlstm_scan", csrc + "mlstm_scan.cu",

@@ -49,8 +49,9 @@ from repro_torch import optim
 from repro_torch import random as trandom
 from repro_torch.core import (ClientPoolState, FLServiceProvider, TaskRequest,
                               lifecycle)
-from repro_torch.core.criteria import (NUM_CRITERIA, data_dist_score,
-                                       linear_cost, overall_score)
+from repro_torch.core.criteria import (NUM_CRITERIA, ClientProfile,
+                                       data_dist_score, linear_cost,
+                                       overall_score)
 from repro_torch.data.synthetic import ClassificationData
 from repro_torch.device import conv_numerics, resolve_device
 from repro_torch.fl import device_data
@@ -85,6 +86,12 @@ def pool_from_partition(labels, parts, num_classes,
     scores[:, 8] = data_dist_score(H)
     costs = linear_cost(overall_score(scores), 2.0, 5.0, integer=True)
     return ClientPoolState(np.arange(n, dtype=np.int64), scores, H, costs)
+
+
+def profiles_from_partition(labels, parts, num_classes,
+                            seed: int = 0) -> list[ClientProfile]:
+    """Dataclass adapter over :func:`pool_from_partition` (same draws)."""
+    return pool_from_partition(labels, parts, num_classes, seed).to_profiles()
 
 
 def _to(tree, device):

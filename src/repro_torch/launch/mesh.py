@@ -11,10 +11,16 @@ an environment variable, the port takes explicit arguments: ``shards``
 entries of one ``device``, so the tests split a round over N shards of
 the CPU and the one-card machine over N shards of ``cuda:0``.
 
-``make_production_mesh`` is not ported: it belongs to the dry-run.
+:func:`make_production_mesh` is the dry-run's mesh: 16x16 cards on
+``("data", "model")``, or two such pods on ``("pod", "data",
+"model")``. Nobody holds those cards: its entries are meta devices, and
+the specs read only its axis names and shape. :func:`fake_device_mesh`
+builds the ``DeviceMesh`` of such a mesh on a fake process group, for a
+DTensor trace in one process (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -60,3 +66,38 @@ def make_host_mesh(device=None, shards: int | None = None) -> Mesh:
     arr = np.empty((len(devs), 1), dtype=object)
     arr[:, 0] = devs
     return Mesh(arr, ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         shape: tuple | None = None) -> Mesh:
+    """16x16 = 256 cards per pod; 2 pods = 512 cards multi-pod.
+
+    ``shape=(d, m)`` overrides the per-pod shape (the reference reads it
+    from ``REPRO_MESH``), for small runs of the dry-run machinery."""
+    d, m = shape if shape else (16, 16)
+    dims = (2, d, m) if multi_pod else (d, m)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devices = np.empty(dims, dtype=object)
+    devices.reshape(-1)[:] = [torch.device("meta")] * devices.size
+    return Mesh(devices, axes)
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: Mesh):
+    """The ``DeviceMesh`` of ``mesh`` on a fake process group of its size
+    (this process is rank 0; collectives complete at once and move no
+    data). The group is destroyed on exit, so the process is left with
+    no process group. Raises if one already exists."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists")
+    dist.init_process_group("fake", rank=0, world_size=mesh.devices.size,
+                            store=FakeStore())
+    try:
+        yield init_device_mesh("cpu", mesh.devices.shape,
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()

@@ -489,7 +489,11 @@ def loss_fn(cfg: ModelConfig, params, batch, flash_fn=None, swiglu_fn=None,
     mask = (targets >= 0).to(torch.float32)
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     tgt = targets.clamp_min(0).long()
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0] * mask
+    # -logp at the target through nll_loss, which DTensor keeps sharded:
+    # gather's backward allocates its zeros at logp's global shape on
+    # every device of a sharded run (the dry-run)
+    nll = F.nll_loss(logp.flatten(0, 1), tgt.flatten(),
+                     reduction="none").view(tgt.shape) * mask
     per_ex = nll.sum(-1) / mask.sum(-1).clamp_min(1.0)         # (B,)
     w = batch.get("weights")
     if w is None:
