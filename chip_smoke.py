@@ -3801,15 +3801,11 @@ def roofline_on_card() -> None:
     from repro_torch.models import transformer as T
     plain = get_config(SERVE_ARCH)
     check(not plain.use_kernels, "the dry-run traces the plain path")
-    shape = f"prefill_{SERVE_B}x{SERVE_PROMPT}"
-    I.SHAPES[shape] = (SERVE_PROMPT, SERVE_B, "prefill")
-    try:
-        t = time.perf_counter()
-        traced = D.trace_step(plain, shape, make_production_mesh(shape=(1, 1)))
-        trace_s = time.perf_counter() - t
-        mf = I.model_flops_for(plain, shape)
-    finally:
-        del I.SHAPES[shape]
+    shape = (SERVE_PROMPT, SERVE_B, "prefill")
+    t = time.perf_counter()
+    traced = D.trace_step(plain, shape, make_production_mesh(shape=(1, 1)))
+    trace_s = time.perf_counter() - t
+    mf = I.model_flops_for(plain, shape)
     terms = R.derive_terms({"flops": traced["flops"],
                             "bytes accessed": traced["bytes_accessed"]},
                            traced["coll"], 1, mf)
@@ -3849,11 +3845,14 @@ def roofline_on_card() -> None:
 def dryrun_cli() -> None:
     """Phase 40: ``python -m repro_torch.launch.dryrun`` as a user runs
     it, three runs at once on the host (the trace needs no card): each
-    artifact ``ok`` with flops > 0 and a bottleneck named."""
+    artifact ``ok`` with flops > 0 and a bottleneck named; SmolLM's
+    runs with no split dim replicated by hand; the multi-pod run traced
+    on pod and data as one mesh dim of 32, its per-device flops half
+    the single pod's within 1 %."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    lines = []
+    lines, arts = [], {}
     with tempfile.TemporaryDirectory() as out:
         procs = []
         for arch, shape, extra, _ in DRYRUN_RUNS:
@@ -3880,6 +3879,7 @@ def dryrun_cli() -> None:
             check(art["ok"] and roof["flops"] > 0 and roof["bottleneck"]
                   in ("compute", "memory", "collective"),
                   f"dryrun artifact {arch} {shape} {mesh}: {art}")
+            arts[mesh] = art
             mem = art["memory"]
             per_dev = (mem["argument_size_in_bytes"]
                        + mem["temp_size_in_bytes"]) / 1e9
@@ -3889,7 +3889,19 @@ def dryrun_cli() -> None:
                 f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} "
                 f"s, collective {roof['collective_s']:.4f} s, bottleneck "
                 f"{roof['bottleneck']}, trace {art['trace_s']} s, wall "
-                f"{wall:.1f} s")
+                f"{wall:.1f} s, mesh dims {art['mesh_dims']}, "
+                f"ops run by hand {art['handled_ops']}")
+    one, two = arts["16x16"], arts["2x16x16"]
+    check(two["mesh_dims"] == {"pod+data": 32, "model": 16},
+          f"multi-pod traced on {two['mesh_dims']}")
+    for art in (one, two):
+        check(not any("replicated" in op for op in art["handled_ops"]),
+              f"smollm-360m train_4k {art['mesh']}: no split dim "
+              f"replicated by hand: {art['handled_ops']}")
+    ratio = two["roofline"]["flops"] / one["roofline"]["flops"]
+    check(abs(ratio - 0.5) <= 0.005, f"smollm-360m train_4k: flops a "
+          f"device on 2x16x16 / 16x16 = {ratio:.6f}, 0.5 within 1 %")
+    lines.append(f"2x16x16 / 16x16 flops a device {ratio:.6f}")
     phase(40, "python -m repro_torch.launch.dryrun on the host, three runs "
               "at once | " + " | ".join(lines))
 

@@ -34,16 +34,28 @@ outputs. ``alias_size_in_bytes`` is 0: the reference's donation (``--opt
 >= 1``) has no counterpart in an eager trace (a decode step updates a
 stacked cache in place all the same).
 
-**Ops DTensor cannot place** as their inputs are placed (no sharding
-strategy, as for ``log_sigmoid``'s, or a view that splits a sharded dim
-unevenly, as GQA's head split on a 16-way model axis) run with their
-DTensor inputs replicated over the mesh dims that repeat the least
-work, as few as it takes: those all-gathers are counted with the rest,
-no op leaves the count, and the artifact's ``fallbacks`` counts each
-such op. An in-place ``index_put_`` into a DTensor is each
-shard's local write (:meth:`LocalCost._local_index_put`): into a
-sharded dim (the slot of a sequence-sharded KV cache) it is the
-flash-decoding layout's owner write.
+**The mesh.** On the multi-pod mesh, ``"pod"`` and ``"data"`` are
+traced as one mesh dim of 32 (``mesh_dims`` in the artifact) wherever
+every spec names them together or neither, as every spec but a
+batch-1 cache's does: DTensor cannot view a dim split over two mesh
+dims, and one dim over (pod, data) is laid out as that one dim is.
+
+**Ops DTensor cannot place.** An op DTensor has no strategy for gets
+one through ``register_sharding`` (``log_sigmoid_backward``, which is
+pointwise). A few ops are run by hand (:data:`_HANDLERS`; the
+artifact's ``handled_ops`` counts each with what was done):
+``index_put_`` and ``index_put`` are written into each local shard,
+rows added into a buffer (the MoE dispatch, an embedding's backward)
+as partial sums left for the reader to reduce, and a write into a
+sharded dim (the slot of a sequence-sharded KV cache) as the
+flash-decoding layout's owner write; ``detach_``, ``flip`` and
+``constant_pad_nd`` run on the local shard (a flipped or padded dim
+split over the mesh replicated first); a view DTensor refuses as
+needing a redistribution gets the dims it merges or splits replicated,
+as few as let it run, the all-gather counted, and one the local
+shard's strides refuse copies the shard first. Any other op DTensor
+cannot run fails the trace: nothing is replicated behind the count's
+back.
 
 ``--opt`` levels: 1 shards the cache's sequence over ``"model"``
 (``seq_over_model``); 2 pads experts to the model axis and takes 8
@@ -70,20 +82,23 @@ import warnings
 import weakref
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import roofline as R
 from repro_torch.launch.inputs import (SHAPES, input_specs, make_prefill_step,
                                        make_serve_step, make_train_step,
-                                       model_flops_for, shape_config)
+                                       model_flops_for, shape_config,
+                                       shape_dims)
 from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+from repro_torch.launch.trace_compat import (TorchDispatchMode,
+                                             fake_tensor_mode, is_fake,
+                                             storage_of)
 from repro_torch.models import transformer as T
 from repro_torch.optim import tree_map
 from repro_torch.sharding import (batch_shardings, cache_shardings,
                                   opt_state_shardings, params_shardings,
                                   placements)
-from repro_torch.sharding.specs import P, mesh_axis_size
+from repro_torch.sharding.specs import mesh_axis_size
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
@@ -98,11 +113,6 @@ LONG_OK["whisper-large-v3"] = ("window-8192 variant; out-of-domain for "
 # ---------------------------------------------------------------------------
 # Per-device cost of the local ops
 # ---------------------------------------------------------------------------
-
-def _is_fake(t) -> bool:
-    from torch._subclasses.fake_tensor import FakeTensor
-    return isinstance(t, FakeTensor)
-
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
@@ -123,8 +133,8 @@ def _tensors(tree, out=None) -> list:
     return out
 
 
-def _storage_key(t: torch.Tensor) -> int:
-    return t.untyped_storage()._cdata
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 _FREE_OPS = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -138,7 +148,11 @@ class LocalCost(TorchDispatchMode):
     as ops on the local shards, which come back here: those are counted.
     So are the c10d functional collectives DTensor inserts, by their
     local output bytes. Ops on fake tensors (DTensor's own shape
-    propagation) are not the device's work and are not counted."""
+    propagation) are not the device's work and are not counted.
+
+    An op DTensor cannot run raises: nothing is replicated behind its
+    back. The ops of :data:`_HANDLERS` are run by hand, each counted in
+    :attr:`handled` with what was done."""
 
     def __init__(self):
         super().__init__()
@@ -147,28 +161,30 @@ class LocalCost(TorchDispatchMode):
         self.collectives: list[tuple[str, int]] = []
         self.live = 0
         self.peak = 0
-        self._storages: dict[int, list] = {}     # key -> [nbytes, refs]
+        self.handled = collections.Counter()  # op: what was done
+        self._storages = weakref.WeakSet()    # counted or left out
         self._inside = False
-        self.fallbacks = collections.Counter()  # how DTensor was helped
+
+    def exclude(self, tree) -> None:
+        """Leave the storages of ``tree``'s tensors (a DTensor's: its
+        local shard's) out of the live bytes: the step's arguments,
+        counted apart."""
+        for t in _tensors(tree):
+            self._storages.add(storage_of(_local(t)))
 
     def _track(self, t: torch.Tensor) -> None:
-        key = _storage_key(t)
-        entry = self._storages.get(key)
-        if entry is None:
-            entry = self._storages[key] = [t.untyped_storage().nbytes(), 0]
-            self.live += entry[0]
-            self.peak = max(self.peak, self.live)
-        entry[1] += 1
-        weakref.finalize(t, self._release, key)
-
-    def _release(self, key: int) -> None:
-        entry = self._storages.get(key)
-        if entry is None:
+        """Count ``t``'s storage as live until it is freed."""
+        s = storage_of(t)
+        if s in self._storages:
             return
-        entry[1] -= 1
-        if entry[1] == 0:
-            self.live -= entry[0]
-            del self._storages[key]
+        self._storages.add(s)
+        n = s.nbytes()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(s, self._release, n)
+
+    def _release(self, n: int) -> None:
+        self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -178,13 +194,14 @@ class LocalCost(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             if self._inside:
                 return NotImplemented       # DTensor's own dispatch
-            if func is torch.ops.aten.index_put_.default:
-                return self._local_index_put(func, *args, **kwargs)
-            return self._sharded(func, args, kwargs)
+            handler = _HANDLERS.get(func)
+            if handler is not None:
+                return handler(self, func, *args, **kwargs)
+            return self._run(lambda: func(*args, **kwargs))
         out = func(*args, **kwargs)
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
-        if any(_is_fake(t) for t in ins + outs):
+        if any(is_fake(t) for t in ins + outs):
             return out
         name = func._schema.name.split("::")[-1]
         if func.namespace.startswith("_c10d_functional"):
@@ -193,72 +210,14 @@ class LocalCost(TorchDispatchMode):
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        in_keys = {_storage_key(a) for a in ins}
-        fresh = [o for o in outs if _storage_key(o) not in in_keys]
+        in_storages = {id(storage_of(a)) for a in ins}
+        fresh = [o for o in outs if id(storage_of(o)) not in in_storages]
         if fresh and name not in _FREE_OPS:
             self.bytes += sum(_nbytes(a) for a in ins) \
                 + sum(_nbytes(o) for o in fresh)
         for o in outs:
             self._track(o)
         return out
-
-    def _sharded(self, func, args, kwargs):
-        """A DTensor op, run by DTensor with this mode active (so its
-        local ops come back here). Where DTensor cannot run the op as its
-        inputs are placed (no sharding strategy; a view that splits a
-        sharded dim unevenly; a local shape DTensor gets wrong), its
-        DTensor inputs are replicated over a set of mesh dims, the least
-        repeated work first (:func:`_replication_plans`), until it can,
-        and at last the op runs on the replicated inputs' local tensors.
-        The all-gathers and the local op are counted, and each such op
-        in :attr:`fallbacks`."""
-        from torch.distributed.tensor import DTensor, Replicate
-        from torch.utils._pytree import tree_map_only
-
-        try:
-            return self._run(lambda: func(*args, **kwargs))
-        except Exception:
-            dts = _dtensors((args, kwargs))
-            # an in-place op keeps its placements: replicating the
-            # tensor it changes would change a copy
-            if func._schema.is_mutable and len(dts) != 1:
-                raise
-        mesh = dts[0].device_mesh
-        if func._schema.is_mutable:
-            # in place on one DTensor and no other (torch 2.11 has no
-            # strategy for detach_): the op on its local shard
-            self.fallbacks[f"{func}: in place on the local shard"] += 1
-            local = tree_map_only(DTensor, lambda t: t.to_local(),
-                                  (args, kwargs))
-            self._run(lambda: func(*local[0], **local[1]))
-            return dts[0]
-
-        def replicated(dims):
-            a, k = _replicate_over(dims, (args, kwargs))
-            return func(*a, **k)
-
-        for dims in _replication_plans(mesh):
-            try:
-                out = self._run(lambda: replicated(dims))
-            except Exception:
-                # an op DTensor cannot place raises one error or another
-                # by torch version; a fault of the op itself raises
-                # again from the last, replicated, call below
-                continue
-            names = ",".join(mesh.mesh_dim_names[d] for d in dims)
-            self.fallbacks[f"{func}: replicated over {names}"] += 1
-            return out
-        # no strategy at all: the op on the replicated inputs' local
-        # tensors, its outputs replicated
-        self.fallbacks[f"{func}: on the replicated local tensors"] += 1
-
-        def local_op():
-            a, k = _replicate_over(range(mesh.ndim), (args, kwargs))
-            a, k = tree_map_only(DTensor, lambda t: t.to_local(), (a, k))
-            return func(*a, **k)
-        out = self._run(local_op)
-        return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
-            t, mesh, [Replicate()] * mesh.ndim, run_check=False), out)
 
     def _run(self, thunk):
         """``thunk()`` with this mode active for the local ops DTensor
@@ -270,69 +229,302 @@ class LocalCost(TorchDispatchMode):
         finally:
             self._inside = False
 
-    def _local_index_put(self, func, dst, indices, values, *rest,
-                         **kwargs):
-        """``dst[indices] = values`` in place into a DTensor: each shard
-        writes its local part, with ``values`` placed like ``dst`` on the
-        dims not indexed and replicated on the indexed ones, and the
-        indices replicated (those redistributions are counted, and so is
-        the local write). Where ``dst`` shards an indexed dim (a
-        sequence-sharded KV cache's slot) this is the owner's write of
-        the flash-decoding layout, counted on every shard: DTensor has
-        no strategy that keeps ``dst`` in place there, and torch 2.11's
-        has none for ``index_put_`` at all."""
-        from torch.distributed.tensor import DTensor, Replicate
+    def _index_put_(self, func, dst, indices, values, accumulate=False):
+        """``dst[indices] = values`` (or ``+=``) in place into a DTensor,
+        written into each local shard; the redistributions it takes are
+        counted, and so is the local write.
 
-        self.fallbacks[f"{func}: each shard's local write"] += 1
+        Rows added into a buffer (:meth:`_rows_added`) are added where
+        they are and reduced into ``dst``. Otherwise ``values`` is placed
+        like ``dst`` on the dims not indexed and replicated on the
+        indexed ones, and the indices replicated. Where ``dst`` shards an
+        indexed dim (a sequence-sharded KV cache's slot) this is the
+        owner's write of the flash-decoding layout, counted on every
+        shard: DTensor has no strategy that keeps ``dst`` in place
+        there, and torch 2.11's has none for ``index_put_`` at all."""
+        from torch.distributed.tensor import Replicate
+
         mesh = dst.device_mesh
-        indexed = {d for d, ix in enumerate(indices) if ix is not None}
-        keep = [Replicate() if p.is_shard() and p.dim in indexed else p
-                for p in dst.placements]
         replicated = [Replicate()] * mesh.ndim
         with self:
-            if not isinstance(values, DTensor):
-                values = DTensor.from_local(values, mesh, replicated,
-                                            run_check=False)
+            values = _as_dtensor(values, mesh)
+            if accumulate and _are_rows(dst, indices, values):
+                self.handled[f"{func}: rows added shard by shard"] += 1
+                part = self._rows_added(dst, indices, values)
+                dst.to_local().add_(
+                    part.redistribute(mesh, dst.placements).to_local())
+                return dst
+            self.handled[f"{func}: written shard by shard"] += 1
+            indexed = {d for d, ix in enumerate(indices) if ix is not None}
+            keep = [Replicate() if p.is_shard() and p.dim in indexed else p
+                    for p in dst.placements]
             # broadcast from the right, as indexing does
             values = values.reshape((1,) * (dst.ndim - values.ndim)
                                     + tuple(values.shape))
             values = values.redistribute(mesh, keep)
-            local = [None if ix is None else
-                     ix.redistribute(mesh, replicated).to_local()
-                     if isinstance(ix, DTensor) else ix for ix in indices]
-            func(dst.to_local(), local, values.to_local(), *rest, **kwargs)
+            local = [None if ix is None else _as_dtensor(ix, mesh)
+                     .redistribute(mesh, replicated).to_local()
+                     for ix in indices]
+            torch.ops.aten.index_put_.default(
+                dst.to_local(), local, values.to_local(), accumulate)
         return dst
 
+    def _index_put(self, func, dst, indices, values, accumulate=False):
+        """``index_put``, out of place (the backward of an index: rows
+        added into zeros). Torch 2.11's strategy for it fails on a
+        partial ``values``; rows added are :meth:`_rows_added`, and
+        anything else is :meth:`_index_put_` on a copy."""
+        with self:
+            values = _as_dtensor(values, dst.device_mesh)
+            if accumulate and _are_rows(dst, indices, values):
+                self.handled[f"{func}: rows added shard by shard"] += 1
+                return dst + self._rows_added(dst, indices, values)
+            out = dst.clone()
+        return self._index_put_(torch.ops.aten.index_put_.default, out,
+                                indices, values, accumulate)
 
-def _dtensors(tree) -> list:
-    from torch.distributed.tensor import DTensor
-    return [t for t in _tensors(tree) if isinstance(t, DTensor)]
+    def _rows_added(self, dst, indices, values):
+        """The rows of ``values`` added at ``indices`` into zeros shaped
+        like ``dst``, as a DTensor placed like ``dst`` except that it is
+        a partial sum over each mesh dim that splits the rows, or holds
+        them partial, and not ``dst``: each shard adds the rows it holds,
+        and the reduction is left to whoever reads the sum, as a
+        partitioner does a scatter-add into a replicated operand (the
+        MoE dispatch, an embedding's backward)."""
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+
+        mesh, k, r = dst.device_mesh, len(indices), indices[0].ndim
+        if any(p.is_partial() or p.is_shard() and p.dim < k
+               for p in dst.placements):
+            raise NotImplementedError(f"rows added into a buffer placed "
+                                      f"{dst.placements}")
+        rows, per_row, out = [], [], []
+        for p, v in zip(dst.placements, values.placements):
+            if p.is_shard():                     # a row's dim split
+                rows.append(Replicate())
+                per_row.append(Shard(p.dim - k + r))
+                out.append(p)
+            elif v.is_shard() and v.dim < r or v.is_partial():
+                rows.append(v if v.is_shard() else Replicate())
+                per_row.append(v)
+                out.append(Partial())
+            else:
+                rows.append(Replicate())
+                per_row.append(Replicate())
+                out.append(p)
+        local = torch.zeros_like(dst.to_local())
+        torch.ops.aten.index_put_.default(
+            local, [_as_dtensor(ix, mesh).redistribute(mesh, rows).to_local()
+                    for ix in indices],
+            values.redistribute(mesh, per_row).to_local(), True)
+        return DTensor.from_local(local, mesh, out, run_check=False,
+                                  shape=dst.shape, stride=dst.stride())
+
+    def _detach_(self, func, dst):
+        """``detach_`` of a DTensor (torch 2.11 has no strategy for it):
+        its local shard's, which moves no data."""
+        self.handled[f"{func}: on the local shard"] += 1
+        with self:
+            func(dst.to_local())
+        return dst
+
+    def _pad(self, func, x, pad, value=0.0):
+        """``constant_pad_nd`` of a DTensor (torch 2.11's strategy for it
+        fails on a tensor split over two mesh dims): :meth:`_on_shards`,
+        the padded dims kept whole, and a partial sum too where the pad
+        value is not 0."""
+        padded = {x.ndim - 1 - i for i in range(len(pad) // 2)
+                  if pad[2 * i] or pad[2 * i + 1]}
+        shape = list(x.shape)
+        for d in padded:
+            i = x.ndim - 1 - d
+            shape[d] += pad[2 * i] + pad[2 * i + 1]
+        return self._on_shards(func, x, padded, shape, value != 0, pad,
+                               value)
+
+    def _flip(self, func, x, dims):
+        """``flip`` of a DTensor (torch 2.11 has no strategy for it):
+        :meth:`_on_shards`, the flipped dims kept whole."""
+        return self._on_shards(func, x, {d % x.ndim for d in dims},
+                               list(x.shape), False, dims)
+
+    def _on_shards(self, func, x, whole, shape, no_partial, *args):
+        """``func(local, *args)`` on each local shard of ``x``, the
+        result placed as ``x`` is with global ``shape``; a mesh dim that
+        splits one of the dims ``whole`` (or, with ``no_partial``, holds
+        a partial sum) is replicated first, counted and in
+        :attr:`handled`."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = x.device_mesh
+        over = [m for m, p in enumerate(x.placements)
+                if p.is_shard() and p.dim in whole
+                or p.is_partial() and no_partial]
+        with self:
+            if over:
+                names = ",".join(mesh.mesh_dim_names[m] for m in over)
+                self.handled[f"{func}: replicated over {names}"] += 1
+                x = x.redistribute(mesh, [Replicate() if m in over else p
+                                          for m, p in enumerate(x.placements)])
+            else:
+                self.handled[f"{func}: on each local shard"] += 1
+            return DTensor.from_local(
+                func(x.to_local(), *args), mesh, x.placements,
+                run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+
+    def _view(self, func, x, size):
+        """A view of a DTensor. Torch 2.11 refuses some views DTensor
+        cannot do without a redistribution (a sharded dim merged into
+        the dim before it, or split, or unevenly sharded). The placement
+        is then the first that lets the view run, each tried in a count
+        of its own that is thrown away: the shards on the dims the view
+        merges or splits replicated over one mesh dim, then two, a dim
+        that leads its group (a batch dim) kept split the longest. The
+        redistribution to it is counted and the op in
+        :attr:`handled`. Where the local shard's strides refuse a view
+        the global tensor allows, the shard is copied first, as a
+        reshape would. Any other failure raises."""
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        touched, firsts = _view_touched(tuple(x.shape), size, x.numel())
+        over = [m for m, p in enumerate(x.placements)
+                if p.is_shard() and p.dim in touched]
+        # fewest mesh dims first, then those that split a group's first
+        # dim last (a batch dim stays split), then the minor ones first
+        subsets = sorted(
+            (c for r in range(1, len(over) + 1)
+             for c in itertools.combinations(over, r)),
+            key=lambda c: (len(c), sum(x.placements[m].dim in firsts
+                                       for m in c), [-m for m in c]))
+        plans = [list(x.placements)] + [
+            [Replicate() if m in c else p for m, p in enumerate(x.placements)]
+            for c in subsets]
+        for pls in plans:
+            try:        # counted apart, and the count thrown away
+                scratch = LocalCost()
+                with scratch:
+                    probe = x.redistribute(mesh, pls)
+                scratch._run(lambda: func(probe, size))
+                break
+            except RuntimeError as e:
+                if _STRIDED_VIEW in str(e):
+                    break       # placed well; the shard is copied below
+                if pls == plans[-1]:
+                    raise
+        if pls != plans[0]:
+            over = ",".join(mesh.mesh_dim_names[m] for m, (p, q) in
+                            enumerate(zip(x.placements, pls)) if p != q)
+            self.handled[f"{func}: replicated over {over}"] += 1
+            with self:
+                x = x.redistribute(mesh, pls)
+        mark = (len(self.collectives), self.flops, self.bytes)
+        try:
+            return self._run(lambda: func(x, size))
+        except RuntimeError as e:
+            if _STRIDED_VIEW not in str(e) or mark != (
+                    len(self.collectives), self.flops, self.bytes):
+                raise
+        # the global view is valid, the local shard's strides refuse it:
+        # a copy, as a reshape would make
+        self.handled[f"{func}: local shard copied"] += 1
+        with self:
+            x = x.clone(memory_format=torch.contiguous_format)
+        return self._run(lambda: func(x, size))
 
 
-def _replication_plans(mesh) -> list:
-    """Every set of mesh dims, in the order an op DTensor cannot place
-    tries them replicated: the least repeated work first (the product of
-    their sizes), then the minor dims first."""
-    subsets = [c for r in range(1, mesh.ndim + 1)
-               for c in itertools.combinations(range(mesh.ndim), r)]
-    return sorted(subsets, key=lambda c: (
-        math.prod(mesh.size(d) for d in c), [-d for d in c]))
+def _view_touched(shape: tuple, size, numel: int) -> tuple:
+    """The dims of ``shape`` a view to ``size`` merges or splits, and
+    the first of each such group: dims are grouped, in order, until the
+    products of their sizes on both sides match."""
+    size = list(size)
+    if -1 in size:
+        rest = math.prod(d for d in size if d != -1)
+        size[size.index(-1)] = numel // rest if rest else 0
+    touched, firsts, i, j = set(), set(), 0, 0
+    while i < len(shape) or j < len(size):
+        gi, gj, pi, pj = [], [], 1, 1
+        if i < len(shape):
+            gi.append(i)
+            pi *= shape[i]
+            i += 1
+        if j < len(size):
+            gj.append(j)
+            pj *= size[j]
+            j += 1
+        while pi != pj and (i < len(shape) or j < len(size)):
+            if pi < pj and i < len(shape) or j == len(size):
+                gi.append(i)
+                pi *= shape[i]
+                i += 1
+            else:
+                gj.append(j)
+                pj *= size[j]
+                j += 1
+        if len(gi) != 1 or len(gj) != 1:
+            touched.update(gi)
+            if gi:
+                firsts.add(gi[0])
+    return touched, firsts
 
 
-def _replicate_over(dims, tree):
-    """``tree`` with every DTensor replicated over the mesh dims ``dims``
-    (its placements on the others kept)."""
+
+
+_STRIDED_VIEW = "view size is not compatible with input tensor's size"
+
+
+def _as_dtensor(t, mesh):
+    """``t``, or a plain tensor as a DTensor replicated on ``mesh``."""
     from torch.distributed.tensor import DTensor, Replicate
-    from torch.utils._pytree import tree_map_only
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
-    if not dims:
-        return tree
 
-    def one(t):
-        pls = [Replicate() if i in dims else p
-               for i, p in enumerate(t.placements)]
-        return t.redistribute(t.device_mesh, pls)
-    return tree_map_only(DTensor, one, tree)
+def _are_rows(dst, indices, values) -> bool:
+    """Whether ``dst[indices] += values`` adds rows: an index on each of
+    ``dst``'s leading dims, all of one shape, and ``values`` that shape
+    followed by ``dst``'s other dims."""
+    if any(ix is None for ix in indices):
+        return False
+    shape = tuple(indices[0].shape)
+    return all(tuple(ix.shape) == shape for ix in indices) and \
+        tuple(values.shape) == shape + tuple(dst.shape[len(indices):])
+
+
+# Ops run by hand (each ``handler(cost, func, *args, **kwargs)``); every
+# other op goes through DTensor's strategies or raises.
+_HANDLERS = {
+    torch.ops.aten.index_put_.default: LocalCost._index_put_,
+    torch.ops.aten.index_put.default: LocalCost._index_put,
+    torch.ops.aten.detach_.default: LocalCost._detach_,
+    torch.ops.aten.constant_pad_nd.default: LocalCost._pad,
+    torch.ops.aten.flip.default: LocalCost._flip,
+    torch.ops.aten.view.default: LocalCost._view,
+    torch.ops.aten._unsafe_view.default: LocalCost._view,
+}
+
+_REGISTERED = []
+
+
+def _register_strategies() -> None:
+    """Register, once a process, the sharding strategies DTensor lacks
+    for ops the models run, through the public ``register_sharding``:
+    ``log_sigmoid_backward`` (xLSTM's gates; torch 2.13 has none) is
+    pointwise, so any dim may be split, its three tensors alike."""
+    if _REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.log_sigmoid_backward.default)
+    def log_sigmoid_backward(grad_output, x, buffer):
+        return [([Replicate()], [Replicate()] * 3)] + [
+            ([Shard(d)], [Shard(d)] * 3) for d in range(x.ndim)]
+    _REGISTERED.append(log_sigmoid_backward)
 
 
 # ---------------------------------------------------------------------------
@@ -341,14 +533,13 @@ def _replicate_over(dims, tree):
 
 def fake_params(cfg):
     """The model's params as fake tensors: shapes and dtypes, no data."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
+    with fake_tensor_mode():
         return T.init_params(cfg, torch.Generator())
 
 
-def to_dtensor(template, spec, device_mesh, dtype=None):
-    """A DTensor of ``template``'s global shape (and ``dtype`` or its
-    own), placed by ``spec`` on ``device_mesh``, over a meta shard."""
+def to_dtensor(template, spec, device_mesh):
+    """A DTensor of ``template``'s global shape and dtype, placed by
+    ``spec`` on ``device_mesh``, over a meta shard."""
     from torch.distributed.tensor import DTensor, Shard
 
     shape = tuple(template.shape)
@@ -361,37 +552,32 @@ def to_dtensor(template, spec, device_mesh, dtype=None):
                 raise ValueError(f"dim {pl.dim} of {shape} does not split "
                                  f"{n} ways")
             local[pl.dim] //= n
-    dtype = dtype or template.dtype
-    shard = torch.empty(local, dtype=dtype, device="meta")
+    shard = torch.empty(local, dtype=template.dtype, device="meta")
     return DTensor.from_local(
         shard, device_mesh, pls, run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, dtype=dtype, device="meta").stride())
+        stride=torch.empty(shape, dtype=template.dtype,
+                           device="meta").stride())
 
 
-def _placed(tree, specs, device_mesh, dtype=None):
-    return tree_map(lambda leaf, spec: to_dtensor(leaf, spec, device_mesh,
-                                                  dtype), tree, specs)
+def _meta_like(t, dtype):
+    return torch.empty(t.shape, dtype=dtype, device="meta")
 
 
-def _local_bytes(tree) -> int:
-    return sum(_nbytes(t.to_local() if hasattr(t, "to_local") else t)
-               for t in _tensors(tree))
-
-
-def build_lowerable(arch: str, shape: str, mesh, device_mesh,
-                    opt_level: int = 0):
-    """(step fn, args, cfg) for ``arch``'s full config at ``shape``, the
-    args DTensors placed by the sharding rules on ``device_mesh`` (the
-    DeviceMesh of ``mesh``). The eager trace runs every layer, so the
-    reference's unrolled variant and its probe correction
+def build_lowerable(arch: str, shape: str, mesh, opt_level: int = 0):
+    """``(step fn, args, specs, cfg)`` for ``arch``'s full config at
+    ``shape`` (:func:`_build_from_cfg`). The eager trace runs every
+    layer, so the reference's unrolled variant and its probe correction
     (``probe_corrected_cost``) have no counterpart here."""
     return _build_from_cfg(shape_config(get_config(arch), shape), shape,
-                           mesh, device_mesh, opt_level=opt_level)
+                           mesh, opt_level=opt_level)
 
 
-def _build_from_cfg(cfg, shape: str, mesh, device_mesh, opt_level: int = 0):
-    """:func:`build_lowerable`'s body for an explicit config."""
-    S, B, kind = SHAPES[shape]
+def _build_from_cfg(cfg, shape, mesh, opt_level: int = 0):
+    """``(step fn, args, specs, cfg)`` for ``cfg`` at ``shape`` (a name
+    in ``SHAPES`` or a ``(seq_len, batch, kind)`` tuple): the args as
+    templates (fake params, meta inputs, the decode position as a Python
+    int) and their specs on ``mesh`` by the sharding rules."""
+    S, B, kind = shape_dims(shape)
     if opt_level >= 2 and cfg.is_moe:
         # pad experts up to a multiple of the model axis so expert-
         # parallel sharding applies (function-preserving)
@@ -399,61 +585,87 @@ def _build_from_cfg(cfg, shape: str, mesh, device_mesh, opt_level: int = 0):
         if cfg.num_experts % tp:
             cfg = dataclasses.replace(
                 cfg, pad_experts_to=-(-cfg.num_experts // tp) * tp)
-    params_struct = fake_params(cfg)
+    params = fake_params(cfg)
     expert_2d = opt_level >= 3 and kind != "train"
-    p_specs = params_shardings(params_struct, mesh, expert_2d=expert_2d)
-    params = _placed(params_struct, p_specs, device_mesh)
+    p_specs = params_shardings(params, mesh, expert_2d=expert_2d)
     specs = input_specs(cfg, shape)
-    batch = _placed(specs["batch"], batch_shardings(specs["batch"], mesh),
-                    device_mesh)
+    batch = specs["batch"]
+    b_specs = batch_shardings(batch, mesh)
     if kind == "train":
         micro = 8 if opt_level >= 2 else 1   # grad accumulation
         step, _ = make_train_step(cfg, microbatches=micro)
-        o_specs = opt_state_shardings(params_struct, mesh)
-        moments = lambda: _placed(params_struct, o_specs["m"], device_mesh,
-                                  torch.float32)
-        count = to_dtensor(torch.empty((), dtype=torch.int32,
-                                       device="meta"), P(), device_mesh)
-        opt_state = {"count": count, "m": moments(), "v": moments()}
-        return step, (params, opt_state, batch), cfg
+        moments = tree_map(lambda t: _meta_like(t, torch.float32), params)
+        opt_state = {"count": _meta_like(torch.empty(()), torch.int32),
+                     "m": moments, "v": moments}
+        return (step, (params, opt_state, batch),
+                (p_specs, opt_state_shardings(params, mesh), b_specs), cfg)
     if kind == "prefill":
-        return make_prefill_step(cfg), (params, batch), cfg
-    c_specs = cache_shardings(specs["cache"], mesh, batch=B,
+        return make_prefill_step(cfg), (params, batch), (p_specs, b_specs), \
+            cfg
+    cache = specs["cache"]
+    c_specs = cache_shardings(cache, mesh, batch=B,
                               seq_over_model=opt_level >= 1)
-    cache = _placed(specs["cache"], c_specs, device_mesh)
     # the decode position: the cache's last slot (a Python int, as the
     # port's decode_step reads it)
-    batch["index"] = S - 1
-    return make_serve_step(cfg), (params, batch, cache), cfg
+    batch, b_specs = dict(batch, index=S - 1), dict(b_specs, index=None)
+    return (make_serve_step(cfg), (params, batch, cache),
+            (p_specs, b_specs, c_specs), cfg)
 
 
-def trace_step(cfg, shape: str, mesh, opt_level: int = 0) -> dict:
+def _merges_data_axes(args, specs) -> bool:
+    """Whether every spec of a tensor names ``"pod"`` and ``"data"``
+    together or neither, so the trace may merge them into one mesh dim
+    (:func:`repro_torch.launch.mesh.fake_device_mesh`)."""
+    together = []
+
+    def one(t, spec):
+        if isinstance(t, torch.Tensor):
+            for entry in spec:
+                axes = set(entry if isinstance(entry, tuple) else (entry,))
+                together.append(len(axes & {"pod", "data"}) != 1)
+    tree_map(one, args, specs)
+    return all(together)
+
+
+def trace_step(cfg, shape, mesh, opt_level: int = 0) -> dict:
     """Run ``cfg``'s step for ``shape`` once as a DTensor trace on a
-    fake process group of ``mesh``; returns its per-device cost, memory
-    and collectives."""
-    return _trace(mesh, lambda device_mesh: _build_from_cfg(
-        cfg, shape, mesh, device_mesh, opt_level=opt_level))
+    fake process group of ``mesh`` (:func:`trace`)."""
+    return trace(_build_from_cfg(cfg, shape, mesh, opt_level=opt_level),
+                 mesh)
 
 
-def _trace(mesh, build) -> dict:
-    """:func:`trace_step` for the step ``build(device_mesh)`` returns."""
+def trace(built, mesh) -> dict:
+    """Run the step :func:`_build_from_cfg` built once as a DTensor trace
+    on a fake process group of ``mesh``, ``"pod"`` and ``"data"`` one
+    mesh dim where the specs allow it; returns the per-device cost,
+    memory and collectives, and the mesh dims traced."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    with fake_device_mesh(mesh) as device_mesh, warnings.catch_warnings():
+    fn, args, specs, cfg = built
+    merge = _merges_data_axes(args, specs)
+    _register_strategies()
+    with fake_device_mesh(mesh, merge_data_axes=merge) as device_mesh, \
+            warnings.catch_warnings():
         # DTensor's note on each one-element index it replicates
         warnings.filterwarnings("ignore", message="Found a non-scalar")
-        fn, args, cfg = build(device_mesh)
-        arg_bytes = _local_bytes(args)
+        placed = tree_map(lambda t, spec: to_dtensor(t, spec, device_mesh)
+                          if isinstance(t, torch.Tensor) else t, args, specs)
+        del args
+        arg_bytes = sum(_nbytes(_local(t)) for t in _tensors(placed))
         cost = LocalCost()
+        cost.exclude(placed)
         # no autograd graph but the train step's own (it enables grad)
         with cost, implicit_replication(), torch.no_grad():
-            out = fn(*args)
-        out_bytes = _local_bytes(out)
-        del out, args
+            out = fn(*placed)
+        out_bytes = sum(_nbytes(_local(t)) for t in _tensors(out))
+        mesh_dims = dict(zip(device_mesh.mesh_dim_names,
+                             device_mesh.mesh.shape))
+        del out, placed
     coll = R.collective_bytes(cost.collectives)
     return {"cfg": cfg, "flops": float(cost.flops),
             "bytes_accessed": float(cost.bytes), "coll": coll,
-            "fallbacks": dict(cost.fallbacks),
+            "handled_ops": dict(cost.handled),
+            "mesh_dims": {k: int(v) for k, v in mesh_dims.items()},
             "memory": {"argument_size_in_bytes": arg_bytes,
                        "output_size_in_bytes": out_bytes,
                        "temp_size_in_bytes": cost.peak,
@@ -475,8 +687,8 @@ def run_one(arch: str, shape: str, multi_pod: bool = False,
            "ok": False}
     t0 = time.time()
     try:
-        traced = _trace(mesh, lambda device_mesh: build_lowerable(
-            arch, shape, mesh, device_mesh, opt_level=opt_level))
+        traced = trace(build_lowerable(arch, shape, mesh,
+                                       opt_level=opt_level), mesh)
         mf = model_flops_for(traced["cfg"], shape)
         cost = {"flops": traced["flops"],
                 "bytes accessed": traced["bytes_accessed"]}
@@ -488,7 +700,8 @@ def run_one(arch: str, shape: str, multi_pod: bool = False,
                       "bytes_accessed": traced["bytes_accessed"]},
             cost_corrected=None,
             collectives=traced["coll"], roofline=terms.as_dict(),
-            fallbacks=traced["fallbacks"],
+            mesh_dims=traced["mesh_dims"],
+            handled_ops=traced["handled_ops"],
             note=LONG_OK.get(arch, "") if shape == "long_500k" else "")
         if verbose:
             mem = traced["memory"]

@@ -33,11 +33,17 @@ SHAPES = {
 LONG_WINDOW = 8_192   # generic sliding-window variant for long_500k
 
 
-def shape_config(cfg: ModelConfig, shape: str, *,
+def shape_dims(shape) -> tuple:
+    """``(seq_len, global_batch, kind)`` of a shape: a name in
+    :data:`SHAPES`, or such a tuple itself (a shape of one's own)."""
+    return SHAPES[shape] if isinstance(shape, str) else tuple(shape)
+
+
+def shape_config(cfg: ModelConfig, shape, *,
                  remat: bool = True) -> ModelConfig:
     """Per-shape config adjustments (window for long-context, remat for
     training)."""
-    kind = SHAPES[shape][2]
+    kind = shape_dims(shape)[2]
     upd = {}
     if shape == "long_500k" and cfg.family not in ("ssm",):
         # sub-quadratic rule: windowed attention unless natively recurrent.
@@ -52,10 +58,10 @@ def _spec(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def batch_specs(cfg: ModelConfig, shape: str) -> dict:
+def batch_specs(cfg: ModelConfig, shape) -> dict:
     """Train-batch specs. For VLM archs the vision prefix occupies part
     of the sequence budget so total length == seq_len."""
-    S, B, kind = SHAPES[shape]
+    S, B, kind = shape_dims(shape)
     assert kind == "train"
     S_text = S
     batch = {}
@@ -72,8 +78,8 @@ def batch_specs(cfg: ModelConfig, shape: str) -> dict:
     return batch
 
 
-def prefill_specs(cfg: ModelConfig, shape: str) -> dict:
-    S, B, _ = SHAPES[shape]
+def prefill_specs(cfg: ModelConfig, shape) -> dict:
+    S, B, _ = shape_dims(shape)
     batch = {"tokens": _spec((B, S if cfg.family != "vlm"
                               else S - cfg.frontend_seq), torch.int32)}
     if cfg.family == "vlm" and cfg.frontend_seq:
@@ -85,10 +91,10 @@ def prefill_specs(cfg: ModelConfig, shape: str) -> dict:
     return batch
 
 
-def decode_specs(cfg: ModelConfig, shape: str) -> tuple:
+def decode_specs(cfg: ModelConfig, shape) -> tuple:
     """Returns (batch_specs, cache_specs): one new token against a KV
     cache of seq_len (ring-buffer of `window` for windowed archs)."""
-    S, B, _ = SHAPES[shape]
+    S, B, _ = shape_dims(shape)
     batch = {"tokens": _spec((B, 1), torch.int32),
              "index": _spec((), torch.int32)}
     if cfg.is_enc_dec:
@@ -98,8 +104,8 @@ def decode_specs(cfg: ModelConfig, shape: str) -> tuple:
     return batch, cache
 
 
-def input_specs(cfg: ModelConfig, shape: str):
-    kind = SHAPES[shape][2]
+def input_specs(cfg: ModelConfig, shape):
+    kind = shape_dims(shape)[2]
     if kind == "train":
         return {"batch": batch_specs(cfg, shape)}
     if kind == "prefill":
@@ -144,9 +150,9 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
-def model_flops_for(cfg: ModelConfig, shape: str) -> float:
+def model_flops_for(cfg: ModelConfig, shape) -> float:
     """MODEL_FLOPS = 6·N·D for training (fwd+bwd), 2·N·D inference."""
-    S, B, kind = SHAPES[shape]
+    S, B, kind = shape_dims(shape)
     per_tok = model_flops_per_token(cfg)       # already includes the 6x
     if kind == "train":
         return per_tok * B * S

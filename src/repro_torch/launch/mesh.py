@@ -16,7 +16,9 @@ the CPU and the one-card machine over N shards of ``cuda:0``.
 "model")``. Nobody holds those cards: its entries are meta devices, and
 the specs read only its axis names and shape. :func:`fake_device_mesh`
 builds the ``DeviceMesh`` of such a mesh on a fake process group, for a
-DTensor trace in one process (``repro_torch.launch.dryrun``).
+DTensor trace in one process (``repro_torch.launch.dryrun``), with
+``"pod"`` and ``"data"`` merged into one mesh dim where the trace's
+specs allow it.
 """
 from __future__ import annotations
 
@@ -83,21 +85,35 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 @contextlib.contextmanager
-def fake_device_mesh(mesh: Mesh):
+def fake_device_mesh(mesh: Mesh, merge_data_axes: bool = False):
     """The ``DeviceMesh`` of ``mesh`` on a fake process group of its size
     (this process is rank 0; collectives complete at once and move no
     data). The group is destroyed on exit, so the process is left with
-    no process group. Raises if one already exists."""
+    no process group. Raises if one already exists.
+
+    ``merge_data_axes``: ``"pod"`` and ``"data"`` become one mesh dim,
+    named ``"pod+data"``, pod-major, as a dim split over ``("pod",
+    "data")`` is laid out. DTensor then splits, views and reduces such a
+    dim as one, where over two mesh dims it cannot view it; only specs
+    that name both axes together, or neither, can be placed on it."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    from repro_torch.launch.trace_compat import check_version, fake_store
+
+    check_version()
     if dist.is_initialized():
         raise RuntimeError("a process group already exists")
+    shape, names = mesh.devices.shape, tuple(mesh.axis_names)
+    if merge_data_axes and "pod" in names:
+        i = names.index("pod")
+        if names[i + 1] != "data":
+            raise ValueError(f"axes {names}: pod must precede data")
+        shape = shape[:i] + (shape[i] * shape[i + 1],) + shape[i + 2:]
+        names = names[:i] + ("pod+data",) + names[i + 2:]
     dist.init_process_group("fake", rank=0, world_size=mesh.devices.size,
-                            store=FakeStore())
+                            store=fake_store())
     try:
-        yield init_device_mesh("cpu", mesh.devices.shape,
-                               mesh_dim_names=tuple(mesh.axis_names))
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
     finally:
         dist.destroy_process_group()

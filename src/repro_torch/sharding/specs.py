@@ -238,16 +238,27 @@ def placements(spec, device_mesh) -> list:
     of more than one device that names the tensor dim ``dim``,
     ``Replicate()`` elsewhere (a split one way is no split, and DTensor
     plans faster without it). A dim over ``("pod", "data")`` is split
-    over both mesh dims, the first the major one, as JAX lays it out."""
+    over both mesh dims, the first the major one, as JAX lays it out, or
+    over the one mesh dim ``"pod+data"`` that merges them; a spec that
+    names only one of a merged dim's axes raises."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = list(device_mesh.mesh_dim_names)
-    out = [Replicate()] * len(names)
+    parts = [tuple(n.split("+")) for n in device_mesh.mesh_dim_names]
+    out = [Replicate()] * len(parts)
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
-        for axis in (entry if isinstance(entry, tuple) else (entry,)):
-            i = names.index(axis)
-            if device_mesh.size(i) > 1:
+        axes = set(entry if isinstance(entry, tuple) else (entry,))
+        unknown = axes.difference(*parts)
+        if unknown:
+            raise ValueError(f"spec {spec} names {sorted(unknown)}, not "
+                             f"axes of {device_mesh.mesh_dim_names}")
+        for i, axis_parts in enumerate(parts):
+            hit = axes & set(axis_parts)
+            if hit and hit != set(axis_parts):
+                raise ValueError(f"spec {spec} splits dim {dim} over "
+                                 f"{sorted(hit)} but not over the rest of "
+                                 f"mesh dim {'+'.join(axis_parts)!r}")
+            if hit and device_mesh.size(i) > 1:
                 out[i] = Shard(dim)
     return out

@@ -17,11 +17,20 @@ lookup. So the port's is held to:
   stack the traced flops are linear in depth, f(3) = f(1) + 2 (f(2) -
   f(1)), exactly (the identity the reference's probe correction
   assumes);
+- on the multi-pod mesh, where pod and data are traced as one mesh dim,
+  the per-device flops of SmolLM's train step are half those of one
+  pod within 1 %;
 - an all-gather of bf16[16, 4096, 384] counts the bytes the reference's
-  HLO parser counts for that shape.
+  HLO parser counts for that shape;
+- no op is replicated behind the count's back: an op DTensor cannot
+  run raises, ``log_sigmoid_backward`` runs on its shards by the
+  strategy the trace registers, the MoE dispatch's scatter-add reduces
+  partial sums instead of gathering the tokens, and the live bytes
+  follow each storage until it is freed.
 
-The flop checks shrink ``train_4k`` to 32 tokens x 8 sequences
-(``SHAPES`` patched) so the real CPU run is small, and take remat off;
+The flop checks shrink ``train_4k`` to 32 tokens x 8 sequences (a
+shape tuple in place of its name) so the real CPU run is small, and
+take remat off;
 the reduced configs scan in chunks of 1,024 (a trace runs each chunk's
 ops: fewer chunks, a faster trace), and the contract's take one layer.
 """
@@ -42,6 +51,7 @@ from repro.launch import roofline as JR
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import inputs as I
+from repro_torch.launch import trace_compat as C
 from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
 from repro_torch.models import transformer as T
 
@@ -131,12 +141,14 @@ def test_all_gather_counts_the_bytes_of_the_hlo_fixture():
     assert coll["total_bytes"] == coll["bytes"]["all-gather"]
 
 
+TRAIN = (32, 8, "train")       # train_4k's step at 32 tokens x 8 sequences
+
+
 @pytest.fixture
-def small_train(monkeypatch):
-    """Reduced SmolLM-360M's train_4k step at 32 tokens x 8 sequences,
-    remat off (the checks hold either way), and its traced flops by
-    (depth, mesh shape), shared by the tests that read them."""
-    monkeypatch.setitem(I.SHAPES, "train_4k", (32, 8, "train"))
+def small_train():
+    """Reduced SmolLM-360M's train step at :data:`TRAIN`, remat off (the
+    checks hold either way), and its traced flops by (depth, mesh
+    shape), shared by the tests that read them."""
     cfg = I.shape_config(reduced("smollm-360m", num_layers=1), "train_4k",
                          remat=False)
 
@@ -145,7 +157,7 @@ def small_train(monkeypatch):
         if key not in _TRACED:
             mesh = make_production_mesh(shape=mesh_shape)
             c = dataclasses.replace(cfg, num_layers=layers)
-            _TRACED[key] = D.trace_step(c, "train_4k", mesh)["flops"]
+            _TRACED[key] = D.trace_step(c, TRAIN, mesh)["flops"]
         return _TRACED[key]
     return cfg, flops
 
@@ -155,7 +167,7 @@ _TRACED = {}
 
 def test_1x1_flops_equal_flop_counter_over_a_real_cpu_run(small_train):
     cfg, flops = small_train
-    S, B, _ = I.SHAPES["train_4k"]
+    S, B, _ = TRAIN
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     step, opt = I.make_train_step(cfg)
     rng = np.random.default_rng(0)
@@ -183,6 +195,159 @@ def test_flops_are_linear_in_depth(small_train):
     f = {L: flops(L, (8, 1)) for L in (1, 2, 3)}
     assert f[2] > f[1] > 0
     assert f[3] == f[1] + 2 * (f[2] - f[1])
+
+
+def test_multi_pod_flops_are_half_of_one_pod():
+    """Two 2x2 pods split the batch twice as far, pod and data one mesh
+    dim: each device does half the work of one pod's."""
+    pod = (2, 2)
+    cfg = I.shape_config(reduced("smollm-360m", num_layers=1), "train_4k")
+    shape = (32, 16, "train")
+    one = D.trace_step(cfg, shape, make_production_mesh(shape=pod))
+    two = D.trace_step(cfg, shape, make_production_mesh(shape=pod,
+                                                        multi_pod=True))
+    assert one["mesh_dims"] == {"data": pod[0], "model": pod[1]}
+    assert two["mesh_dims"] == {"pod+data": 2 * pod[0], "model": pod[1]}
+    assert two["flops"] == pytest.approx(one["flops"] / 2, rel=0.01)
+    assert one["handled_ops"] == two["handled_ops"]
+    assert not dist.is_initialized()
+
+
+def test_a_spec_of_data_alone_keeps_pod_and_data_apart():
+    """long_500k's batch-1 cache splits its sequence over "data" alone,
+    so that trace keeps the three mesh dims."""
+    mesh = make_production_mesh(shape=(4, 2), multi_pod=True)
+    built = D._build_from_cfg(reduced("smollm-360m", num_layers=1),
+                              "long_500k", mesh)
+    assert not D._merges_data_axes(built[1], built[2])
+    train = D._build_from_cfg(reduced("smollm-360m", num_layers=1), TRAIN,
+                              mesh)
+    assert D._merges_data_axes(train[1], train[2])
+
+
+def _sharded(dm, shape, spec, dtype=torch.float32):
+    return D.to_dtensor(torch.empty(shape, dtype=dtype, device="meta"),
+                        spec, dm)
+
+
+def test_an_op_dtensor_cannot_run_raises():
+    """``renorm`` has no sharding strategy: the trace fails there, and
+    nothing is gathered first."""
+    with fake_device_mesh(make_production_mesh(shape=(4, 2))) as dm:
+        x = _sharded(dm, (8, 6), ("data", None))
+        with D.LocalCost() as cost, pytest.raises(NotImplementedError,
+                                                  match="renorm"):
+            torch.renorm(x, 2, 0, 1.0)
+    assert cost.collectives == [] and cost.flops == 0
+    assert not cost.handled
+
+
+def test_log_sigmoid_backward_runs_on_its_shards():
+    """torch 2.13 has no strategy for ``log_sigmoid_backward``: the one
+    the trace registers keeps its inputs' split, so the op is one local
+    op on each shard and no collective."""
+    D._register_strategies()
+    with fake_device_mesh(make_production_mesh(shape=(4, 2))) as dm:
+        spec = ("data", None, "model")
+        g, x = (_sharded(dm, (8, 6, 4), spec) for _ in range(2))
+        buf = _sharded(dm, (8, 6, 4), spec)
+        with D.LocalCost() as cost:
+            y = torch.ops.aten.log_sigmoid_backward(g, x, buf)
+        assert y.placements == x.placements
+        assert y.to_local().shape == (2, 6, 2)
+    assert cost.collectives == []
+    assert cost.bytes == 4 * 2 * 6 * 2 * 4      # 3 inputs + 1 output
+    assert not dist.is_initialized()
+
+
+def test_scatter_add_reduces_partial_sums_not_the_tokens():
+    """The MoE dispatch adds token rows, split over "data", into an
+    (E, C, d) buffer replicated there: each shard adds its own rows into
+    zeros and one all-reduce of the buffer's shard makes it whole; no
+    token is gathered."""
+    E, C, d, N = 4, 16, 8, 32
+    with fake_device_mesh(make_production_mesh(shape=(4, 2))) as dm:
+        buf = _sharded(dm, (E, C, d), (None, None, None))
+        rows = _sharded(dm, (N, d), ("data", None))
+        e = _sharded(dm, (N,), ("data",), torch.int64)
+        c = _sharded(dm, (N,), ("data",), torch.int64)
+        with D.LocalCost() as cost:
+            buf.index_put_((e, c), rows, accumulate=True)
+        assert buf.to_local().shape == (E, C, d)
+    coll = D.R.collective_bytes(cost.collectives)
+    assert coll["counts"] == {"all-reduce": 1, "all-gather": 0,
+                              "reduce-scatter": 0, "all-to-all": 0,
+                              "collective-permute": 0}
+    assert coll["bytes"]["all-reduce"] == E * C * d * 4
+    assert cost.handled == {
+        "aten.index_put_.default: rows added shard by shard": 1}
+
+
+@pytest.mark.parametrize("spec,size,placed,gathered", [
+    ((None, "model"), (8, 3, 2), ("R", "R"), 8 * 6 * 4),
+    (("data", "model"), (1, 8, 3, 2), (1, "R"), 2 * 6 * 4)])
+def test_a_refused_view_gathers_the_split_dim_once(spec, size, placed,
+                                                   gathered):
+    """Splitting a dim sharded over "model" into (3, 2) leaves 3 rows
+    for 2 shards, which DTensor refuses: the dim is replicated over
+    "model" alone (one all-gather, counted), a batch dim split over
+    "data" stays split, and the view runs; the placements tried first
+    and refused count nothing."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    with fake_device_mesh(make_production_mesh(shape=(4, 2))) as dm:
+        x = _sharded(dm, (8, 6), spec)
+        with D.LocalCost() as cost:
+            y = x.view(*size)
+        assert y.placements == tuple(Replicate() if p == "R" else Shard(p)
+                                     for p in placed)
+    coll = D.R.collective_bytes(cost.collectives)
+    assert coll["counts"]["all-gather"] == 1
+    assert coll["total_bytes"] == gathered
+    assert cost.handled == {"aten.view.default: replicated over model": 1}
+
+
+@pytest.mark.parametrize("shape,size,touched,firsts", [
+    ((128, 1, 25, 64), (128, 1, 1600), {2, 3}, {2}),
+    ((128, 1, 1536), (128, 1, 4, 384), {2}, {2}),
+    ((2, 3), (-1,), {0, 1}, {0}),
+    ((8, 6), (8, 6), set(), set())])
+def test_view_touched_groups_the_dims_a_view_merges_or_splits(
+        shape, size, touched, firsts):
+    assert D._view_touched(shape, size, int(np.prod(shape))) == (touched,
+                                                                firsts)
+
+
+def test_live_bytes_follow_each_storage_until_it_is_freed():
+    """A view keeps its storage live after the tensor it came from is
+    gone; the step's arguments are left out."""
+    arg = torch.ones(10)
+    with D.LocalCost() as cost:
+        cost.exclude(arg)
+        a = torch.ones(1000)
+        b = a[1:]
+        _ = arg.view(2, 5)
+        del a
+        assert cost.live == 4000
+        del b
+        assert cost.live == 0
+        c = torch.ones(10)
+    assert cost.peak == 4000 and cost.live == 40
+    del c
+
+
+def test_trace_compat_helpers_on_this_torch():
+    """The torch internals the trace rests on, on the running version
+    (torch 2.11 and 2.13 both)."""
+    C.check_version()
+    assert C.torch_version() >= C.MIN_VERSION
+    t = torch.empty(6, device="meta")
+    assert C.storage_of(t) is C.storage_of(t[2:])
+    with C.fake_tensor_mode():
+        f = torch.empty(3)
+    assert C.is_fake(f) and not C.is_fake(t)
+    assert C.fake_store() is not None
+    assert issubclass(D.LocalCost, C.TorchDispatchMode)
 
 
 def test_fake_device_mesh_refuses_a_second_group():

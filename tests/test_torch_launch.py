@@ -385,6 +385,23 @@ def test_placements_split_a_dim_over_pod_and_data_major_to_minor():
                         mesh(2, 4, 1)) == [Shard(0), Shard(0), Replicate()]
 
 
+def test_placements_on_a_merged_pod_and_data_dim():
+    """The trace's mesh with pod and data one dim: a spec over both is
+    one split there; one that names only one of them, or an axis the
+    mesh lacks, raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    m = types.SimpleNamespace(mesh_dim_names=("pod+data", "model"),
+                              size=lambda i: (8, 2)[i])
+    assert S.placements(S.P(("pod", "data"), None, "model"), m) == [
+        Shard(0), Shard(2)]
+    assert S.placements(S.P(None, "model"), m) == [Replicate(), Shard(1)]
+    with pytest.raises(ValueError, match="rest of mesh dim"):
+        S.placements(S.P(None, "data"), m)
+    with pytest.raises(ValueError, match="not axes"):
+        S.placements(S.P("expert"), m)
+
+
 def test_production_mesh_shapes_and_devices():
     m = make_production_mesh()
     assert m.devices.shape == (16, 16) and m.axis_names == ("data", "model")
