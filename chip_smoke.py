@@ -888,13 +888,6 @@ def serve_timing(out) -> list[str]:
     scale = rn(D)
     lines = []
 
-    def norm_timed(m, x):
-        return {"ms": time_ms(lambda: ops.rmsnorm(x, scale)),
-                "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale)),
-                "library_ms": time_ms(lambda: F.rms_norm(x, (D,), scale,
-                                                         1e-6)),
-                **bound(2 * (2 * m * D + D), 4 * m * D)}
-
     def mlp_timed(m, d, f, wg, wu):
         x, w_gu = rn(m, d), torch.cat([wg, wu], 1)
         return {"ms": time_ms(lambda: ops.swiglu(x, wg, wu)),
@@ -905,8 +898,8 @@ def serve_timing(out) -> list[str]:
                 **bound(2 * (m * d + 2 * d * f + m * f), 4 * m * d * f,
                         PEAK_BF16_FLOPS)}
 
-    norm = norm_timed(M, rn(M, D))
-    norm["at_decode"] = norm_timed(SERVE_B, rn(SERVE_B, D))
+    norm = norm_timing(rn(M, D), scale)
+    norm["at_decode"] = norm_timing(rn(SERVE_B, D), scale)
     wg, wu = rn(D, Fd, s=D ** -0.5), rn(D, Fd, s=D ** -0.5)
     mlp = mlp_timed(M, D, Fd, wg, wu)
     mlp["at_decode"] = mlp_timed(SERVE_B, D, Fd, wg, wu)
@@ -1993,8 +1986,10 @@ def serve_kernels_vs_plain() -> tuple[dict, dict]:
                       (3, 5, 128), (1, 1),
                       *(c for pair in fam_norm.values() for c in pair)):
             x, s = rn(shape, dtype, 3.0), rn(shape[-1:], dtype)
-            held("rmsnorm", (shape, dtype), ops.rmsnorm(x, s),
-                 ref.rmsnorm_ref(x, s))
+            got = ops.rmsnorm(x, s)
+            held("rmsnorm", (shape, dtype), got, ref.rmsnorm_ref(x, s))
+            check(torch.equal(got, ops.rmsnorm(x, s)),
+                  f"rmsnorm {shape} {dtype}: a repeat is bit-equal")
         for m, d, f in SWIGLU_CASES + [c for pair in fam_mlp.values()
                                        for c in pair]:
             x = rn((m, d), dtype)
@@ -2064,9 +2059,15 @@ def serve_kernels_vs_plain() -> tuple[dict, dict]:
         + f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
         for name, by_arch in fam.items() for arch, t0 in by_arch.items()
         for t in (t0, *([t0["at_decode"]] if "at_decode" in t0 else [])))
+    plans = "; ".join(
+        f"{arch} {kind} ({m}, {D}) {norm_layout(m, D)}"
+        for arch, (B, S, D) in FAMILY_NORM.items()
+        for kind, m in (("prefill", B * S), ("decode", B)))
     phase(14, f"serve kernels vs plain on the card, f32 and bf16: rmsnorm "
               f"{n['rmsnorm']} cases (rows x D in {M}x{D}, {SERVE_B}x{D}, "
-              f"{SSM_B * SSM_PROMPT}x1600, {SSM_B}x1600, 4x50, 15x128, 1x1), "
+              f"{SSM_B * SSM_PROMPT}x1600, {SSM_B}x1600, 4x50, 15x128, 1x1 "
+              f"and FAMILY_NORM's, every repeat bit-equal; layouts in bf16: "
+              f"{plans}), "
               f"swiglu {n['swiglu']} (M, D, F in "
               f"{', '.join(map(str, SWIGLU_SHAPES.values()))} and ragged: "
               f"M off 128, D off 64, F off 128, D % 8 != 0; routes "
@@ -2121,16 +2122,6 @@ def family_kernel_timing() -> dict:
                     4 * B * H * hd * pairs, PEAK_BF16_FLOPS)}
         del q, k, v, qt, kt, vt
 
-    def norm(m, D):
-        x, scale = rn(m, D), rn(D)
-        return {"shape": f"({m}, {D})",
-                "ms": time_ms(lambda: ops.rmsnorm(x, scale)),
-                "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale)),
-                "library": "F.rms_norm",
-                "library_ms": time_ms(lambda: F.rms_norm(x, (D,), scale,
-                                                         1e-6)),
-                **bound(2 * (2 * m * D + D), 4 * m * D)}
-
     def mlp(m, d, f, wg, wu, w_gu):
         x = rn(m, d)
         return {"shape": f"M={m} D={d} F={f}",
@@ -2142,14 +2133,57 @@ def family_kernel_timing() -> dict:
                 **bound(2 * (m * d + 2 * d * f + m * f), 4 * m * d * f,
                         PEAK_BF16_FLOPS)}
 
-    for arch, (B, S, D) in FAMILY_NORM.items():
-        out["rmsnorm"][arch] = {**norm(B * S, D), "at_decode": norm(B, D)}
+    out["rmsnorm"] = family_norm_timing()
     for arch, (B, S, D, F_) in FAMILY_MLP.items():
         wg, wu = rn(D, F_, s=D ** -0.5), rn(D, F_, s=D ** -0.5)
         w_gu = torch.cat([wg, wu], 1)
         out["swiglu"][arch] = {**mlp(B * S, D, F_, wg, wu, w_gu),
                                "at_decode": mlp(B, D, F_, wg, wu, w_gu)}
         del wg, wu, w_gu
+    return out
+
+
+def norm_layout(m: int, D: int) -> str | None:
+    """The layout a bf16 ``rmsnorm`` call of (m, D) on 16-byte boundaries
+    takes on this card (route, G warps a row, R vectors a lane, rows a
+    block, cluster or not), or None for a tree whose wrapper has no plan."""
+    from repro_torch.kernels import rmsnorm as krms
+    if not hasattr(krms, "plan"):
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = krms.plan(m, D, 2, True, sms)
+    return (f"{p.route} G={p.warps} R={p.vectors} rows={p.rows} "
+            + (f"cluster {p.cluster}" if p.cluster > 1 else "no cluster"))
+
+
+def norm_timing(x, scale) -> dict:
+    """``rmsnorm`` on bf16 x (m, D), timed as phase 6 times the serve
+    kernels (:func:`time_ms`) beside its plain version, ``F.rms_norm``
+    (the yardstick the port never calls) and its bound, with the layout
+    the call takes (:func:`norm_layout`)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    m, D = x.shape
+    return {"shape": f"({m}, {D})", "layout": norm_layout(m, D),
+            "ms": time_ms(lambda: ops.rmsnorm(x, scale)),
+            "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale)),
+            "library": "F.rms_norm",
+            "library_ms": time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6)),
+            **bound(2 * (2 * m * D + D), 4 * m * D)}
+
+
+def family_norm_timing() -> dict:
+    """Row 9 in bf16 at FAMILY_NORM's prefill (B x S rows) and decode (B
+    rows) shapes, by :func:`norm_timing`. Returns {arch: record}, the
+    decode step's under "at_decode"."""
+    g = torch.Generator(device="cuda").manual_seed(30)
+    rn = lambda *shape: torch.randn(*shape, generator=g,
+                                    device="cuda").to(torch.bfloat16)
+    out = {}
+    for arch, (B, S, D) in FAMILY_NORM.items():
+        scale = rn(D)
+        out[arch] = {**norm_timing(rn(B * S, D), scale),
+                     "at_decode": norm_timing(rn(B, D), scale)}
     return out
 
 

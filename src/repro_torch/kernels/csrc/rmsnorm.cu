@@ -12,26 +12,48 @@
 // microsecond, so there the launch and the memory round trips the kernel
 // waits on are the cost.
 //
-// Design: one warp per row, eight rows a block. Where D and the row start
-// allow 16-byte loads (8 bf16 or 4 f32 a lane, neighbouring lanes on
-// neighbouring addresses) and the row fits in R <= 8 such vectors a lane
-// (2,048 bf16 or 1,024 f32, which covers SmolLM's D of 960 and Hymba's
-// 1,600), the warp loads its row's vectors of x and the matching vectors of
-// the scale in one pass into registers (rmsnorm_regs_kernel<T, R>, R the
-// smallest power of two that holds the row), sums the squares, reduces with
-// a butterfly of shuffles and writes from the same registers: x is read
-// once and the warp waits on one round trip to memory, not two. Other rows
-// take the loop (rmsnorm_kernel): pass 1 sums the squares (16-byte loads
-// where allowed, element loads otherwise), pass 2 reads the row again (from
-// L1/L2) and writes it. Both sum each lane's squares in the same order, so
-// the two give the same bits.
+// Three routes; the caller (kernels/rmsnorm.py::plan) picks one and its
+// shape. Every one reads x once where 16-byte loads are allowed (D a
+// multiple of 16 / itemsize, x, scale and out on 16-byte boundaries: 8 bf16
+// or 4 f32 a load, neighbouring lanes on neighbouring addresses), and sums
+// the squares in a fixed order, so a repeat gives the same bits.
+//
+// - Register route (rmsnorm_regs_kernel<T, R>): a row of up to 2,048 bf16 or
+//   1,024 f32 values (SmolLM's 960, Hymba's 1,600, Qwen1.5-MoE's 2,048) is
+//   one warp's, eight rows a block. The warp loads its row's vectors of x
+//   and of the scale into registers, R <= 8 a lane, every load issued before
+//   any use, sums the squares, reduces with a butterfly of shuffles and
+//   writes from the same registers: one round trip to memory.
+// - Split route (rmsnorm_split_kernel<T, R>): a wider row (Llama 4's 5,120,
+//   InternVL2's 6,144) is split over a group of G warps, each lane holding
+//   R <= 4 vectors, so a row's loads all go out at once without the
+//   registers that would keep too few warps resident. Each warp sums its
+//   squares by shuffles; the G sums meet in shared memory and every thread
+//   adds them in warp order, so the bits do not depend on scheduling; the
+//   output is written from the same registers, the row never re-read. A
+//   block holds `rows` rows (G x rows <= 32 warps) and, where the rows
+//   outnumber what the card holds at once, is persistent over row groups.
+//   It stages its share of the scale in shared memory once (cp.async, each
+//   lane the vectors it will use), not once a row from L2. A cluster of
+//   `csize` blocks may share one row, summing the blocks' totals in rank
+//   order through distributed shared memory.
+// - Loop route (rmsnorm_kernel): rows without 16-byte loads, and rows past
+//   the split route's 32 x 32 x 4 vectors. One warp a row: pass 1 sums the
+//   squares (16-byte loads where allowed, element loads otherwise), pass 2
+//   reads the row again (from L1/L2) and writes it.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;          // rows a block on the loop and register routes
+constexpr int kMaxWarps = 32;      // warps a block on the split route
+constexpr int kMaxCluster = 8;     // blocks a row on the split route (portable cluster size)
+enum Route { kLoop = 0, kRegs = 1, kSplit = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -145,43 +167,220 @@ rmsnorm_regs_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __r
   }
 }
 
-template <typename T>
-int run(const void* x, const void* scale, void* out, int M, int D, float eps, int vec, int regs,
-        void* stream) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// A block of G x rows warps: row slot `slot` of each row group takes warps
+// slot * G .. slot * G + G - 1; with csize > 1 (then rows == 1) the cluster's
+// blocks split one row, block rank k taking warps k * G .. k * G + G - 1 of
+// it. Lane `lane` of the row's warp w holds vectors (i * G * csize + w) * 32
+// + lane, i < R, of the row: a warp's load is 512 contiguous bytes.
+template <typename T, int R>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+rmsnorm_split_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ out,
+                     int M, int D, float eps, int G, int rows, int csize) {
   constexpr int kVec = 16 / sizeof(T);
-  if (M < 1 || D < 1 || (regs && (!vec || D > 32 * regs * kVec)))
+  extern __shared__ uint4 s_scale[];     // the block's share of the scale: R x G x 32 vectors
+  __shared__ float part[2][kMaxWarps];   // each warp's sum of squares, by iteration parity
+  __shared__ float cpart[2];             // the block's, read by the cluster
+  const int V = D / kVec;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp / G, w = warp - slot * G;
+  const int rank = csize > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int gw = G * csize, wr = rank * G + w;  // warps a row, this warp's place in it
+  if (slot == 0) {  // staged once a block; lands while the first row's loads are in flight
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int c = (i * gw + wr) * 32 + lane;
+      if (c < V) cp_async16(&s_scale[(i * G + w) * 32 + lane], scale + (size_t)c * kVec);
+    }
+  }
+  const int groups = (M + rows - 1) / rows, stride = gridDim.x / csize;
+  int it = 0;
+  for (int g = blockIdx.x / csize; g < groups; g += stride, ++it) {
+    const int row = g * rows + slot;
+    const bool live = row < M;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+    uint4 xv[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {  // every load of the row issued before any use
+      const int c = (i * gw + wr) * 32 + lane;
+      if (live && c < V) xv[i] = __ldg(xr + c);
+    }
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (live && (i * gw + wr) * 32 + lane < V) {
+        const T* v = reinterpret_cast<const T*>(&xv[i]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float f = to_f32(v[e]);
+          ss = __fmaf_rn(f, f, ss);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xFFFFFFFFu, ss, o);
+    float* p = part[it & 1];
+    if (lane == 0) p[warp] = ss;
+    if (it == 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // the warps' sums (and, the first time, the scale) are in place
+    float tot = p[slot * G];
+    for (int k = 1; k < G; ++k) tot += p[slot * G + k];  // in warp order
+    if (csize > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (threadIdx.x == 0) cpart[it & 1] = tot;
+      cluster.sync();  // every block's total is in its shared memory
+      tot = *cluster.map_shared_rank(&cpart[it & 1], 0);
+      for (int k = 1; k < csize; ++k) tot += *cluster.map_shared_rank(&cpart[it & 1], k);
+    }
+    const float r = rsqrtf(__fadd_rn(__fdiv_rn(tot, (float)D), eps));
+    if (live) {
+      uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * D);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int c = (i * gw + wr) * 32 + lane;
+        if (c < V) {
+          const uint4 sv = s_scale[(i * G + w) * 32 + lane];
+          const T* v = reinterpret_cast<const T*>(&xv[i]);
+          const T* sc = reinterpret_cast<const T*>(&sv);
+          uint4 res;
+          T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) o[e] = norm_one(v[e], r, sc[e]);
+          orow[c] = res;
+        }
+      }
+    }
+  }
+  // a block's totals stay in its shared memory until the cluster has read them
+  if (csize > 1) cg::this_cluster().sync();
+}
+
+int sm_count(int& sms) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// How many blocks of `warps` warps of rmsnorm_split_kernel<T, R> an SM holds
+// at once (registers and threads limit it; shared memory, at most 2 KB a
+// warp, does not), by device.
+template <typename T, int R>
+int split_per_sm(int warps) {
+  static int cache[16][kMaxWarps + 1] = {};
+  int dev = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
+  if (cache[dev][warps] > 0) return cache[dev][warps];
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_split_kernel<T, R>,
+                                                    warps * 32, (size_t)warps * R * 512) !=
+      cudaSuccess)
+    return 0;
+  return cache[dev][warps] = per_sm;
+}
+
+template <typename T, int R>
+int launch_split(const T* x, const T* scale, T* out, int M, int D, float eps, int G, int rows,
+                 int csize, cudaStream_t st) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(rmsnorm_split_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxWarps * R * 512);
+  if (attr != cudaSuccess) return (int)attr;
+  const int groups = (M + rows - 1) / rows;
+  long long grid = (long long)groups * csize;
+  if (csize == 1) {  // persistent over row groups where they outnumber what the card holds
+    int sms = 0;
+    if (const int rc = sm_count(sms)) return rc;
+    if (groups > sms) {
+      const int per_sm = split_per_sm<T, R>(G * rows);
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
+    }
+  }
+  if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid, 1, 1);
+  cfg.blockDim = dim3(G * rows * 32, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)G * R * 512;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = csize;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = csize > 1 ? 1 : 0;
+  const cudaError_t rc =
+      cudaLaunchKernelEx(&cfg, rmsnorm_split_kernel<T, R>, x, scale, out, M, D, eps, G, rows, csize);
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* x, const void* scale, void* out, int M, int D, float eps, int vec, int route,
+        int vectors, int warps, int rows, int csize, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (M < 1 || D < 1 || (route != kLoop && !vec)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((M + kWarps - 1) / kWarps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xx = static_cast<const T*>(x);
   const T* ss = static_cast<const T*>(scale);
   T* oo = static_cast<T*>(out);
-  switch (regs) {
-    case 0: rmsnorm_kernel<T><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps, vec); break;
-    case 1: rmsnorm_regs_kernel<T, 1><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
-    case 2: rmsnorm_regs_kernel<T, 2><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
-    case 4: rmsnorm_regs_kernel<T, 4><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
-    case 8: rmsnorm_regs_kernel<T, 8><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+  if (route == kLoop) {
+    rmsnorm_kernel<T><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps, vec);
+    return (int)cudaGetLastError();
+  }
+  if (route == kRegs) {
+    if (D > 32 * vectors * kVec) return (int)cudaErrorInvalidValue;
+    switch (vectors) {
+      case 1: rmsnorm_regs_kernel<T, 1><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+      case 2: rmsnorm_regs_kernel<T, 2><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+      case 4: rmsnorm_regs_kernel<T, 4><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+      case 8: rmsnorm_regs_kernel<T, 8><<<blocks, kWarps * 32, 0, st>>>(xx, ss, oo, M, D, eps); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+  }
+  if (route != kSplit || warps < 1 || rows < 1 || csize < 1 || csize > kMaxCluster ||
+      (csize > 1 && rows > 1) || warps * rows > kMaxWarps ||
+      32LL * warps * csize * vectors * kVec < D)
+    return (int)cudaErrorInvalidValue;
+  switch (vectors) {
+    case 1: return launch_split<T, 1>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
+    case 2: return launch_split<T, 2>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
+    case 3: return launch_split<T, 3>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
+    case 4: return launch_split<T, 4>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes. x and out (M, D) row-major, scale (D,), all
-// f32 (rmsnorm_f32) or all bf16 (rmsnorm_bf16). vec != 0 asks for 16-byte
-// loads: the caller sets it only when D is a multiple of 16 / itemsize and
-// x, scale and out start on 16-byte boundaries. regs in {1, 2, 4, 8} takes
-// the register kernel with that many 16-byte vectors a lane (needs vec and
-// D <= 32 * regs * 16 / itemsize); 0 takes the loop. Returns 0 or the CUDA
-// error code of a failed launch.
+// f32 (rmsnorm_f32) or all bf16 (rmsnorm_bf16). vec != 0 says 16-byte loads
+// are allowed: D a multiple of 16 / itemsize and x, scale and out on 16-byte
+// boundaries. route 0 takes the loop (vec or not); 1 the register route with
+// `vectors` in {1, 2, 4, 8} 16-byte vectors a lane (D <= 32 * vectors * 16 /
+// itemsize); 2 the split route: `warps` (G) warps a row in a block, `vectors`
+// in 1..4, `rows` rows a block (G x rows <= 32), `csize` blocks a row in a
+// cluster (1..8; rows 1 if more than 1), 32 x G x csize x vectors vectors
+// covering D. Both of the last need vec. Returns 0 or the CUDA error code of
+// a refused or failed launch.
 extern "C" int rmsnorm_f32(const void* x, const void* scale, void* out, int M, int D, float eps,
-                           int vec, int regs, void* stream) {
-  return run<float>(x, scale, out, M, D, eps, vec, regs, stream);
+                           int vec, int route, int vectors, int warps, int rows, int csize,
+                           void* stream) {
+  return run<float>(x, scale, out, M, D, eps, vec, route, vectors, warps, rows, csize, stream);
 }
 
 extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out, int M, int D,
-                            float eps, int vec, int regs, void* stream) {
-  return run<__nv_bfloat16>(x, scale, out, M, D, eps, vec, regs, stream);
+                            float eps, int vec, int route, int vectors, int warps, int rows,
+                            int csize, void* stream) {
+  return run<__nv_bfloat16>(x, scale, out, M, D, eps, vec, route, vectors, warps, rows, csize,
+                            stream);
 }

@@ -8,6 +8,8 @@ its bound and design). Built with the port's other kernels at first use
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -15,29 +17,94 @@ from . import build
 
 DTYPES = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_int)
+                                      ctypes.c_float) + (ctypes.c_int,) * 6
+ROUTES = {"loop": 0, "regs": 1, "split": 2}
 REGISTER_VECTORS = (1, 2, 4, 8)
+SPLIT_VECTORS = 4      # most 16-byte vectors a lane on the split route
+DECODE_VECTORS = 2     # ... at fewer rows than SMs: more warps, loads out at once
+MAX_WARPS = 32         # a block on the split route
+MAX_CLUSTER = 8        # blocks a row on the split route
+IN_FLIGHT = 32 * 1024  # bytes of x a prefill block's rows load at once
+H100_SMS = 132
 
 
-def vectors_per_lane(D: int, itemsize: int, vec: bool) -> int:
-    """How many 16-byte vectors of a row each lane holds in registers:
-    the least R in :data:`REGISTER_VECTORS` with 32 * R vectors covering
-    the row (up to 2,048 bf16 or 1,024 f32), or 0, the loop kernel, for
-    wider rows and for rows that cannot take 16-byte loads (``vec``
-    false)."""
-    per = 16 // itemsize
+class Plan(NamedTuple):
+    """How a call is laid out on the card: ``route`` ("regs", "split" or
+    "loop"), ``warps`` a row in a block (G), 16-byte ``vectors`` a lane
+    (R; 0 on the loop route), ``rows`` a block and ``cluster`` blocks a
+    row."""
+    route: str
+    warps: int
+    vectors: int
+    rows: int
+    cluster: int = 1
+
+
+def plan(M: int, D: int, itemsize: int, vec: bool,
+         sms: int = H100_SMS) -> Plan:
+    """The layout of an (M, D) call of ``itemsize``-byte values; ``vec``
+    says 16-byte loads are allowed (D a multiple of 16 / itemsize, every
+    pointer on a 16-byte boundary).
+
+    - Rows that cannot take 16-byte loads: the loop, element-wise.
+    - Rows of up to 32 x 8 vectors (2,048 bf16, 1,024 f32): the register
+      route, one warp a row, the least R in :data:`REGISTER_VECTORS` that
+      holds it, eight rows a block.
+    - Wider rows: the split route, G warps a row with R <= 4 vectors a
+      lane. With at least as many rows as SMs (prefill), the fewest warps
+      with R <= :data:`SPLIT_VECTORS`, and rows a block enough for about
+      :data:`IN_FLIGHT` bytes of loads (the block persistent over row
+      groups); with fewer (decode), R <= :data:`DECODE_VECTORS` and one row
+      a block, so a row's loads go out over more lanes at once.
+    - Rows past 32 x 32 x 4 vectors (32,768 bf16): the loop.
+    """
     if not vec:
-        return 0
-    return next((r for r in REGISTER_VECTORS if 32 * r * per >= D), 0)
+        return Plan("loop", 1, 0, 8)
+    V = -(-D // (16 // itemsize))
+    if V <= 32 * REGISTER_VECTORS[-1]:
+        return Plan("regs", 1, next(r for r in REGISTER_VECTORS
+                                    if 32 * r >= V), 8)
+    decode = M < sms
+    for most in ((DECODE_VECTORS, SPLIT_VECTORS) if decode
+                 else (SPLIT_VECTORS,)):
+        G = -(-V // (32 * most))
+        if G <= MAX_WARPS:
+            R = -(-V // (32 * G))
+            rows = 1 if decode else max(1, min(
+                MAX_WARPS // G, -(-IN_FLIGHT // (D * itemsize))))
+            return Plan("split", G, R, rows)
+    return Plan("loop", 1, 0, 8)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def _check(p: Plan, D: int, itemsize: int, vec: bool) -> None:
+    """Raise ValueError on a forced plan the kernel does not take."""
+    V = -(-D // (16 // itemsize))
+    ok = {"loop": lambda: True,
+          "regs": lambda: vec and p.vectors in REGISTER_VECTORS
+          and 32 * p.vectors >= V,
+          "split": lambda: vec and 1 <= p.vectors <= SPLIT_VECTORS
+          and p.warps >= 1 and p.rows >= 1 and p.warps * p.rows <= MAX_WARPS
+          and 1 <= p.cluster <= MAX_CLUSTER
+          and (p.cluster == 1 or p.rows == 1)
+          and 32 * p.warps * p.cluster * p.vectors >= V}
+    if p.route not in ok or not ok[p.route]():
+        raise ValueError(f"rmsnorm kernel does not take {p} at D={D}, "
+                         f"itemsize {itemsize}, 16-byte loads {vec}")
+
+
+@functools.cache
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+            layout: Plan | None = None) -> torch.Tensor:
     """Launch the kernel. x: (..., D) and scale: (D,), CUDA tensors of one
     type, float32 or bfloat16. Returns (..., D) in that type, as
-    :func:`repro_torch.kernels.ref.rmsnorm_ref` defines it. Raises on any
-    input the kernel does not take and on a failed launch."""
+    :func:`repro_torch.kernels.ref.rmsnorm_ref` defines it. ``layout``
+    forces another :class:`Plan` than :func:`plan`'s (to time or hold one
+    against another). Raises on any input or layout the kernel does not
+    take and on a failed launch."""
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError("rmsnorm kernel needs x and scale on one CUDA device")
     if x.dtype not in DTYPES or scale.dtype != x.dtype:
@@ -54,10 +121,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                          f"{(M, D)}")
     scale = scale.contiguous()
     out = torch.empty_like(xm)
-    vec = D % (16 // x.element_size()) == 0 and build.aligned16(xm, scale,
-                                                                 out)
+    size = x.element_size()
+    vec = D % (16 // size) == 0 and build.aligned16(xm, scale, out)
+    if layout is None:
+        layout = plan(M, D, size, vec, _num_sms(x.device))
+    else:
+        _check(layout, D, size, vec)
     build.launch(build.entry(DTYPES[x.dtype], _ARGTYPES), x.device,
                  xm.data_ptr(), scale.data_ptr(), out.data_ptr(), M, D,
-                 float(eps), int(vec),
-                 vectors_per_lane(D, x.element_size(), vec))
+                 float(eps), int(vec), ROUTES[layout.route], layout.vectors,
+                 layout.warps, layout.rows, layout.cluster)
     return out.reshape(x.shape)

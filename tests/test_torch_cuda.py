@@ -61,6 +61,7 @@ unsharded plane as the JAX package holds its own: masks exact, q,
 losses and parameters within rtol 1e-3 / atol 1e-4 after four rounds.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1166,17 +1167,60 @@ def randn(shape, dtype, seed, device, scale=1.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 1), (8, 64), (3, 5, 128), (4, 50),
-                                   (7, 960), (8192, 960), (2, 4100),
-                                   (8, 1600), (8, 2048), (8, 2056)])
-def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
-    x = randn(shape, dtype, 1, cuda, 3.0)
+@pytest.mark.parametrize("shape,offset", [
+    ((1, 1), 0), ((8, 64), 0), ((3, 5, 128), 0), ((4, 50), 0), ((7, 960), 0),
+    ((8192, 960), 0), ((2, 4100), 0), ((8, 1600), 0), ((8, 2048), 0),
+    ((8, 2056), 0), ((4096, 5120), 0), ((4, 5120), 0), ((2048, 6144), 0),
+    ((2, 6144), 0), ((3, 6152), 0), ((2, 6150), 0), ((4, 6144), 2)])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, offset, dtype):
+    """Every route: the register route, the split route at the serves'
+    prefill and decode shapes and at a ragged vector count (6,152), and
+    the element-wise loop where D takes no 16-byte loads (4,100 in bf16,
+    6,150) or x is a view ``offset`` elements off a 16-byte boundary."""
+    n = math.prod(shape)
+    x = randn((n + 8,), dtype, 1, cuda, 3.0)[offset:offset + n].view(shape)
     s = randn(shape[-1:], dtype, 2, cuda)
+    vec = shape[-1] * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+    assert vec or krms.plan(n // shape[-1], shape[-1], x.element_size(),
+                            vec).route == "loop"
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
     before = ops.LAUNCHES["rmsnorm"]
     got = ops.rmsnorm(x, s)
     assert ops.LAUNCHES["rmsnorm"] == before + 1
     assert_serve_close("rmsnorm", got, ref.rmsnorm_ref(x, s))
     assert torch.equal(got, ops.rmsnorm(x, s))
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,shape,layout", [
+    (_BF, (2048, 6144), ("split", 12, 2, 1)),
+    (_BF, (2048, 6144), ("split", 8, 3, 4)),
+    (_BF, (2048, 6144), ("split", 24, 1, 1)),
+    (_BF, (2, 6144), ("split", 6, 4, 1)),
+    (_BF, (2, 6144), ("split", 6, 2, 1, 2)),
+    (_BF, (4, 6144), ("split", 3, 2, 1, 4)),
+    (_BF, (3, 6152), ("split", 2, 4, 1, 8)),
+    (_BF, (4096, 2048), ("split", 2, 4, 8)),
+    (_BF, (4, 5120), ("split", 5, 2, 1, 2)),
+    (_BF, (300, 5120), ("split", 1, 4, 1, 5)),
+    (_BF, (4096, 2048), ("regs", 1, 8, 8)),
+    (_BF, (8, 6144), ("loop", 1, 0, 8)),
+    (_F32, (2048, 6144), ("split", 24, 2, 1)),
+    (_F32, (2, 6144), ("split", 12, 2, 1, 2)),
+    (_F32, (1000, 2048), ("split", 4, 4, 8))])
+def test_rmsnorm_forced_layouts_match_plain(cuda, shape, layout, dtype):
+    """Every layout the split route takes (G warps a row, R vectors a
+    lane, rows a block, clusters of 2-8 blocks a row, a persistent grid),
+    forced through ``layout``, is held as the plan's own and repeats bit
+    for bit."""
+    x = randn(shape, dtype, 5, cuda, 3.0)
+    s = randn(shape[-1:], dtype, 6, cuda)
+    p = krms.Plan(*layout)
+    got = krms.rmsnorm(x, s, layout=p)
+    assert_serve_close("rmsnorm", got, ref.rmsnorm_ref(x, s))
+    assert torch.equal(got, krms.rmsnorm(x, s, layout=p))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

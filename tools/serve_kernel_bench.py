@@ -2,6 +2,7 @@
 ``mlstm_scan`` kernels, for a before and after comparison on one card.
 
     python3 tools/serve_kernel_bench.py [--root DIR] [--outputs DIR] [--sweep]
+                                        [--layouts]
     python3 tools/serve_kernel_bench.py [--root DIR] --scan-accuracy
 
 Puts ``DIR/src`` (default: this checkout's) first on the path, so the
@@ -15,23 +16,32 @@ kernels, then prints the routes the tree's wrappers take, phase 6's serve
 lines (``flash_attention`` at SmolLM-360M's and Hymba-1.5B's prefill,
 ``rmsnorm`` at prefill and at a decode step, ``swiglu`` at both models'
 prefill and decode step, ``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's
-prefill in bf16 with the route it takes, through ``scan_timing``), and
-the device time of one call of each shape split by kernel name
-(``torch.profiler``, CUDA activity, 10 calls). With ``--outputs DIR`` it
-saves this tree's outputs of the four kernels on seeded inputs there
-(``mlstm_scan`` in f32, its one-block kernel, and in bf16, output and
-final state, at the serve shapes with one sequence) and says, kernel by
-kernel, whether they are ``torch.equal`` to those every other tree saved
-in ``DIR`` (keep DIR on the card's machine, under ``build/``: the outputs
-take about 300 MB a tree). ``--sweep`` times every ``swiglu`` kernel that takes the operands
-at both models' D and F over M from 1 to 128 (this tree only; it picks
-the rows where the decode route ends). ``--scan-accuracy`` does none of
-that: it holds the tree's ``mlstm_scan`` to its plain version over
-phase 21's cases (``chip_smoke.scan_comparisons``, with the inputs that
-need all three bf16 terms of an f32 operand) and prints each case's
-route and largest err / limit, failing none, so a variant source can be
-read against the tolerances. The last line is one JSON object with all
-of it. Needs one CUDA card; exits non-zero without it.
+prefill in bf16 with the route it takes, through ``scan_timing``),
+``rmsnorm`` at ``FAMILY_NORM``'s prefill and decode shapes (phase 14's
+``family_norm_timing``, beside ``F.rms_norm``, with the layout each call
+takes), and the device time of one call of each shape split by kernel
+name (``torch.profiler``, CUDA activity, 10 calls). With ``--outputs
+DIR`` it saves this tree's outputs of the four kernels on seeded inputs
+there (``rmsnorm`` at SmolLM-360M's, Hymba-1.5B's and ``FAMILY_NORM``'s
+prefill and decode shapes; ``mlstm_scan`` in f32, its one-block kernel,
+and in bf16, output and final state, at the serve shapes with one
+sequence) and says, kernel by kernel and for ``rmsnorm`` shape by shape,
+whether they are ``torch.equal`` to those every other tree saved in
+``DIR`` (keep DIR on the card's machine, under ``build/``: the outputs
+take about 300 MB a tree). ``--sweep`` times every ``swiglu`` kernel that
+takes the operands at both models' D and F over M from 1 to 128 (this
+tree only; it picks the rows where the decode route ends). ``--layouts``
+times ``rmsnorm`` at ``FAMILY_NORM``'s shapes in every layout the split
+route takes near its plan (G warps a row, R vectors a lane, rows a
+block, clusters of 2 and 4 blocks a row at decode), forced through the
+wrapper's ``layout`` (this tree only; it sets ``rmsnorm.plan``).
+``--scan-accuracy`` does none of that: it holds the tree's
+``mlstm_scan`` to its plain version over phase 21's cases
+(``chip_smoke.scan_comparisons``, with the inputs that need all three
+bf16 terms of an f32 operand) and prints each case's route and largest
+err / limit, failing none, so a variant source can be read against the
+tolerances. The last line is one JSON object with all of it. Needs one
+CUDA card; exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -45,7 +55,11 @@ HERE = Path(__file__).resolve().parents[1]
 # (B, S, H, G, hd, window): the two serve paths' prefill attention
 ATTN = {"smollm-360m": (8, 1024, 15, 5, 64, 0),
         "hymba-1.5b": (4, 2048, 25, 5, 64, 1024)}
-NORM = {"prefill": (8 * 1024, 960), "decode": (8, 960)}
+# rmsnorm's (rows, D) at SmolLM-360M's and Hymba-1.5B's prefill and decode
+NORM = {"smollm-360m prefill": (8 * 1024, 960),
+        "smollm-360m decode": (8, 960),
+        "hymba-1.5b prefill": (4 * 2048, 1600),
+        "hymba-1.5b decode": (4, 1600)}
 SWEEP_M = (1, 2, 4, 8, 12, 16, 24, 32, 64, 128)
 
 
@@ -54,6 +68,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--outputs", type=Path, default=None)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--layouts", action="store_true")
     ap.add_argument("--scan-accuracy", action="store_true")
     args = ap.parse_args()
     root = args.root.resolve()
@@ -97,6 +112,14 @@ def main() -> int:
     timed = {}
     for line in cs.serve_timing(timed) + cs.scan_timing(timed):
         print(f"[bench] {line}", flush=True)
+    timed["rmsnorm_families"] = fam = cs.family_norm_timing()
+    for arch, t0 in fam.items():
+        for t in (t0, t0["at_decode"]):
+            print(f"[bench] rmsnorm at {arch}'s {t['shape']} bf16, layout "
+                  f"{t['layout']}: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} "
+                  f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})",
+                  flush=True)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
            "route": route, "swiglu_routes": mlp_routes, **timed}
 
@@ -110,7 +133,10 @@ def main() -> int:
             lambda: ops.flash_attention_bshd(q, k, v, window=window))
         saved[f"flash_attention {arch}"] = ops.flash_attention_bshd(
             q, k, v, window=window).cpu()
-    for name, (M, D) in NORM.items():
+    norms = {**NORM, **{f"{arch} {kind}": (m, D)
+                        for arch, (B, S, D) in cs.FAMILY_NORM.items()
+                        for kind, m in (("prefill", B * S), ("decode", B))}}
+    for name, (M, D) in norms.items():
         x, scale = rn(M, D) * 3, rn(D)
         splits[f"rmsnorm {name}"] = cs.launch_split(
             lambda: ops.rmsnorm(x, scale))
@@ -140,9 +166,10 @@ def main() -> int:
                 equal[other.stem] = {
                     kernel: all(torch.equal(saved[n], theirs[n])
                                 for n in saved if n.startswith(kernel))
-                    for kernel in ("flash_attention", "rmsnorm", "swiglu",
+                    for kernel in ("flash_attention", "swiglu",
                                    "mlstm_scan float32",
-                                   "mlstm_scan bfloat16")}
+                                   "mlstm_scan bfloat16",
+                                   *(f"rmsnorm {n}" for n in norms))}
         torch.save(saved, args.outputs / f"{tag}.pt")
         out["outputs_equal_to"] = equal
         print(f"[bench] outputs torch.equal to the saved trees': {equal}",
@@ -161,8 +188,50 @@ def main() -> int:
                       + ", ".join(f"{k} {t:.4f} ms" for k, t in row.items()),
                       flush=True)
         out["swiglu_sweep"] = sweep
+    if args.layouts:
+        out["rmsnorm_layouts"] = norm_layouts(cs, rn)
     print(json.dumps(out))
     return 0
+
+
+def norm_layouts(cs, rn) -> dict:
+    """``rmsnorm`` in bf16 at each FAMILY_NORM shape and at SmolLM-360M's
+    and Hymba-1.5B's, in its plan's layout and in the split route's others
+    near it: at prefill the fewest warps a row for R = 4, 3 and 2 vectors
+    a lane, each at 1 to 8 rows a block; at decode R = 1, 2 and 4 at one
+    block a row and in clusters of 2 and 4 blocks a row. Each timed by
+    ``time_ms`` beside ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as krms
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(arch, kind, m, D) for arch, (B, S, D) in cs.FAMILY_NORM.items()
+              for kind, m in (("prefill", B * S), ("decode", B))]
+    shapes += [(*name.split(), m, D) for name, (m, D) in NORM.items()]
+    found = {}
+    for arch, kind, m, D in shapes:
+        V, scale, x = D // 8, rn(D), rn(m, D)
+        plan = krms.plan(m, D, 2, True, sms)
+        prefill = kind == "prefill"
+        layouts = [plan]
+        for R in (4, 3, 2) if prefill else (1, 2, 4):
+            for c in (1,) if prefill else (1, 2, 4):
+                G = -(-V // (32 * R * c))
+                for rows in (1, 2, 3, 4, 6, 8) if prefill else (1,):
+                    p = krms.Plan("split", G, R, rows, c)
+                    if G * rows <= krms.MAX_WARPS and p not in layouts:
+                        layouts.append(p)
+        row = {"library_ms": cs.time_ms(
+            lambda: F.rms_norm(x, (D,), scale, 1e-6))}
+        for p in layouts:
+            row[" ".join(map(str, p))] = cs.time_ms(
+                lambda: krms.rmsnorm(x, scale, layout=p))
+        found[f"{arch} {kind} ({m}, {D})"] = row
+        print(f"[bench] rmsnorm layouts at {arch}'s {kind} ({m}, {D}), plan "
+              f"{' '.join(map(str, plan))}: "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in row.items()),
+              flush=True)
+    return found
 
 
 if __name__ == "__main__":
