@@ -2146,14 +2146,14 @@ def family_kernel_timing() -> dict:
 def norm_layout(m: int, D: int) -> str | None:
     """The layout a bf16 ``rmsnorm`` call of (m, D) on 16-byte boundaries
     takes on this card (route, G warps a row, R vectors a lane, rows a
-    block, cluster or not), or None for a tree whose wrapper has no plan."""
+    block; no cluster: one block holds a row), or None for a tree whose
+    wrapper has no plan."""
     from repro_torch.kernels import rmsnorm as krms
     if not hasattr(krms, "plan"):
         return None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     p = krms.plan(m, D, 2, True, sms)
-    return (f"{p.route} G={p.warps} R={p.vectors} rows={p.rows} "
-            + (f"cluster {p.cluster}" if p.cluster > 1 else "no cluster"))
+    return f"{p.route} G={p.warps} R={p.vectors} rows={p.rows} no cluster"
 
 
 def norm_timing(x, scale) -> dict:

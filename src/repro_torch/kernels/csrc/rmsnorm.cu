@@ -13,46 +13,48 @@
 // waits on are the cost.
 //
 // Three routes; the caller (kernels/rmsnorm.py::plan) picks one and its
-// shape. Every one reads x once where 16-byte loads are allowed (D a
-// multiple of 16 / itemsize, x, scale and out on 16-byte boundaries: 8 bf16
-// or 4 f32 a load, neighbouring lanes on neighbouring addresses), and sums
-// the squares in a fixed order, so a repeat gives the same bits.
+// shape. Where 16-byte loads are allowed (D a multiple of 16 / itemsize, x,
+// scale and out on 16-byte boundaries: 8 bf16 or 4 f32 a load, neighbouring
+// lanes on neighbouring addresses) x is read once, every load of a row is
+// issued before any use, and a row's squares are summed in a fixed order,
+// so a repeat gives the same bits.
 //
-// - Register route (rmsnorm_regs_kernel<T, R>): a row of up to 2,048 bf16 or
-//   1,024 f32 values (SmolLM's 960, Hymba's 1,600, Qwen1.5-MoE's 2,048) is
-//   one warp's, eight rows a block. The warp loads its row's vectors of x
-//   and of the scale into registers, R <= 8 a lane, every load issued before
-//   any use, sums the squares, reduces with a butterfly of shuffles and
-//   writes from the same registers: one round trip to memory.
-// - Split route (rmsnorm_split_kernel<T, R>): a wider row (Llama 4's 5,120,
-//   InternVL2's 6,144) is split over a group of G warps, each lane holding
-//   R <= 4 vectors, so a row's loads all go out at once without the
-//   registers that would keep too few warps resident. Each warp sums its
-//   squares by shuffles; the G sums meet in shared memory and every thread
-//   adds them in warp order, so the bits do not depend on scheduling; the
-//   output is written from the same registers, the row never re-read. A
-//   block holds `rows` rows (G x rows <= 32 warps) and, where the rows
-//   outnumber what the card holds at once, is persistent over row groups.
-//   It stages its share of the scale in shared memory once (cp.async, each
-//   lane the vectors it will use), not once a row from L2. A cluster of
-//   `csize` blocks may share one row, summing the blocks' totals in rank
-//   order through distributed shared memory.
+// - Split route (rmsnorm_split_kernel<T, R>), every row of up to 32 x 32 x
+//   4 vectors at prefill and rows past the register route at a decode step:
+//   a row is split over a group of G warps, each lane holding R vectors of
+//   x in registers. Each warp sums its squares by shuffles; the G sums meet
+//   in shared memory and every thread adds them in warp order, so the bits
+//   do not depend on scheduling; the output is written from the same
+//   registers, the row never re-read. Rows past 2,048 bf16 or 1,024 f32
+//   (Llama 4's 5,120, InternVL2's 6,144) take the fewest warps with R <= 4
+//   at prefill and R <= 2 at a decode step, so a row's loads go out over
+//   more lanes at once; narrower rows take G = 1 with the register route's
+//   vectors, so their bits are the register route's. A block holds `rows`
+//   rows (G x rows <= 32 warps), at 56-64 registers a thread so that an SM
+//   holds 32 warps or more, and is persistent over row groups where they
+//   outnumber what the card holds at once. It stages its share of the scale
+//   in shared memory once (cp.async, each lane the vectors it will use),
+//   not once a row from L2.
+// - Register route (rmsnorm_regs_kernel<T, R>), a decode step's rows of up
+//   to 2,048 bf16 or 1,024 f32 values (SmolLM's 960, Hymba's 1,600,
+//   Qwen1.5-MoE's 2,048): one warp a row, eight rows a block. The warp
+//   loads its row's vectors of x and of the scale into registers, R <= 8 a
+//   lane, sums the squares, reduces with a butterfly of shuffles and
+//   writes from the same registers: one round trip to memory. Holding the
+//   scale in registers too (80 registers a thread at R = 4 in bf16, 151 at
+//   R = 8) it keeps too few warps on an SM to stream a prefill.
 // - Loop route (rmsnorm_kernel): rows without 16-byte loads, and rows past
 //   the split route's 32 x 32 x 4 vectors. One warp a row: pass 1 sums the
 //   squares (16-byte loads where allowed, element loads otherwise), pass 2
 //   reads the row again (from L1/L2) and writes it.
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 8;          // rows a block on the loop and register routes
 constexpr int kMaxWarps = 32;      // warps a block on the split route
-constexpr int kMaxCluster = 8;     // blocks a row on the split route (portable cluster size)
 enum Route { kLoop = 0, kRegs = 1, kSplit = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -175,46 +177,45 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 
 // A block of G x rows warps: row slot `slot` of each row group takes warps
-// slot * G .. slot * G + G - 1; with csize > 1 (then rows == 1) the cluster's
-// blocks split one row, block rank k taking warps k * G .. k * G + G - 1 of
-// it. Lane `lane` of the row's warp w holds vectors (i * G * csize + w) * 32
-// + lane, i < R, of the row: a warp's load is 512 contiguous bytes.
+// slot * G .. slot * G + G - 1, and lane `lane` of the slot's warp w holds
+// vectors (i * G + w) * 32 + lane, i < R, of the row (a warp's load is 512
+// contiguous bytes; at G = 1 a lane holds the register route's vectors and
+// sums them in its order). The block is persistent over row groups.
+// Dynamic shared memory: the block's share of the scale, G x R x 32
+// vectors.
 template <typename T, int R>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 rmsnorm_split_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ out,
-                     int M, int D, float eps, int G, int rows, int csize) {
+                     int M, int D, float eps, int G, int rows) {
   constexpr int kVec = 16 / sizeof(T);
-  extern __shared__ uint4 s_scale[];     // the block's share of the scale: R x G x 32 vectors
-  __shared__ float part[2][kMaxWarps];   // each warp's sum of squares, by iteration parity
-  __shared__ float cpart[2];             // the block's, read by the cluster
+  extern __shared__ uint4 s_scale[];
+  __shared__ float part[2][kMaxWarps];  // each warp's sum of squares, by iteration parity
   const int V = D / kVec;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int slot = warp / G, w = warp - slot * G;
-  const int rank = csize > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int gw = G * csize, wr = rank * G + w;  // warps a row, this warp's place in it
-  if (slot == 0) {  // staged once a block; lands while the first row's loads are in flight
+  if (slot == 0) {  // the scale, staged once a block, lands with the first rows
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int c = (i * gw + wr) * 32 + lane;
-      if (c < V) cp_async16(&s_scale[(i * G + w) * 32 + lane], scale + (size_t)c * kVec);
+      const int c = (i * G + w) * 32 + lane;
+      if (c < V) cp_async16(&s_scale[c], scale + (size_t)c * kVec);
     }
   }
-  const int groups = (M + rows - 1) / rows, stride = gridDim.x / csize;
+  const int groups = (M + rows - 1) / rows;
   int it = 0;
-  for (int g = blockIdx.x / csize; g < groups; g += stride, ++it) {
+  for (int g = blockIdx.x; g < groups; g += gridDim.x, ++it) {
     const int row = g * rows + slot;
     const bool live = row < M;
     const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
     uint4 xv[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) {  // every load of the row issued before any use
-      const int c = (i * gw + wr) * 32 + lane;
+      const int c = (i * G + w) * 32 + lane;
       if (live && c < V) xv[i] = __ldg(xr + c);
     }
     float ss = 0.0f;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      if (live && (i * gw + wr) * 32 + lane < V) {
+      if (live && (i * G + w) * 32 + lane < V) {
         const T* v = reinterpret_cast<const T*>(&xv[i]);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
@@ -231,21 +232,14 @@ rmsnorm_split_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __
     __syncthreads();  // the warps' sums (and, the first time, the scale) are in place
     float tot = p[slot * G];
     for (int k = 1; k < G; ++k) tot += p[slot * G + k];  // in warp order
-    if (csize > 1) {
-      cg::cluster_group cluster = cg::this_cluster();
-      if (threadIdx.x == 0) cpart[it & 1] = tot;
-      cluster.sync();  // every block's total is in its shared memory
-      tot = *cluster.map_shared_rank(&cpart[it & 1], 0);
-      for (int k = 1; k < csize; ++k) tot += *cluster.map_shared_rank(&cpart[it & 1], k);
-    }
     const float r = rsqrtf(__fadd_rn(__fdiv_rn(tot, (float)D), eps));
     if (live) {
       uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * D);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const int c = (i * gw + wr) * 32 + lane;
+        const int c = (i * G + w) * 32 + lane;
         if (c < V) {
-          const uint4 sv = s_scale[(i * G + w) * 32 + lane];
+          const uint4 sv = s_scale[c];
           const T* v = reinterpret_cast<const T*>(&xv[i]);
           const T* sc = reinterpret_cast<const T*>(&sv);
           uint4 res;
@@ -257,8 +251,6 @@ rmsnorm_split_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __
       }
     }
   }
-  // a block's totals stay in its shared memory until the cluster has read them
-  if (csize > 1) cg::this_cluster().sync();
 }
 
 int sm_count(int& sms) {
@@ -269,62 +261,30 @@ int sm_count(int& sms) {
   return 0;
 }
 
-// How many blocks of `warps` warps of rmsnorm_split_kernel<T, R> an SM holds
-// at once (registers and threads limit it; shared memory, at most 2 KB a
-// warp, does not), by device.
-template <typename T, int R>
-int split_per_sm(int warps) {
-  static int cache[16][kMaxWarps + 1] = {};
-  int dev = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
-  if (cache[dev][warps] > 0) return cache[dev][warps];
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_split_kernel<T, R>,
-                                                    warps * 32, (size_t)warps * R * 512) !=
-      cudaSuccess)
-    return 0;
-  return cache[dev][warps] = per_sm;
-}
-
 template <typename T, int R>
 int launch_split(const T* x, const T* scale, T* out, int M, int D, float eps, int G, int rows,
-                 int csize, cudaStream_t st) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(rmsnorm_split_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxWarps * R * 512);
+                 cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      rmsnorm_split_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxWarps * R * 512);
   if (attr != cudaSuccess) return (int)attr;
-  const int groups = (M + rows - 1) / rows;
-  long long grid = (long long)groups * csize;
-  if (csize == 1) {  // persistent over row groups where they outnumber what the card holds
-    int sms = 0;
-    if (const int rc = sm_count(sms)) return rc;
-    if (groups > sms) {
-      const int per_sm = split_per_sm<T, R>(G * rows);
-      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-      if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
-    }
+  const int groups = (M + rows - 1) / rows, smem = G * R * 512;
+  int grid = groups, sms = 0;
+  if (const int rc = sm_count(sms)) return rc;
+  if (groups > sms) {  // persistent over row groups where they outnumber what the card holds
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_split_kernel<T, R>,
+                                                      G * rows * 32, smem) != cudaSuccess ||
+        per_sm < 1)
+      return (int)cudaErrorInvalidConfiguration;
+    if ((long long)grid > (long long)per_sm * sms) grid = per_sm * sms;
   }
-  if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid, 1, 1);
-  cfg.blockDim = dim3(G * rows * 32, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)G * R * 512;
-  cfg.stream = st;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = csize;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = csize > 1 ? 1 : 0;
-  const cudaError_t rc =
-      cudaLaunchKernelEx(&cfg, rmsnorm_split_kernel<T, R>, x, scale, out, M, D, eps, G, rows, csize);
-  if (rc != cudaSuccess) return (int)rc;
+  rmsnorm_split_kernel<T, R><<<grid, G * rows * 32, smem, st>>>(x, scale, out, M, D, eps, G, rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run(const void* x, const void* scale, void* out, int M, int D, float eps, int vec, int route,
-        int vectors, int warps, int rows, int csize, void* stream) {
+        int vectors, int warps, int rows, void* stream) {
   constexpr int kVec = 16 / sizeof(T);
   if (M < 1 || D < 1 || (route != kLoop && !vec)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((M + kWarps - 1) / kWarps);
@@ -347,15 +307,17 @@ int run(const void* x, const void* scale, void* out, int M, int D, float eps, in
     }
     return (int)cudaGetLastError();
   }
-  if (route != kSplit || warps < 1 || rows < 1 || csize < 1 || csize > kMaxCluster ||
-      (csize > 1 && rows > 1) || warps * rows > kMaxWarps ||
-      32LL * warps * csize * vectors * kVec < D)
+  if (route != kSplit || warps < 1 || rows < 1 || warps * rows > kMaxWarps ||
+      32LL * warps * vectors * kVec < D)
     return (int)cudaErrorInvalidValue;
   switch (vectors) {
-    case 1: return launch_split<T, 1>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
-    case 2: return launch_split<T, 2>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
-    case 3: return launch_split<T, 3>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
-    case 4: return launch_split<T, 4>(xx, ss, oo, M, D, eps, warps, rows, csize, st);
+    case 1: return launch_split<T, 1>(xx, ss, oo, M, D, eps, warps, rows, st);
+    case 2: return launch_split<T, 2>(xx, ss, oo, M, D, eps, warps, rows, st);
+    case 3: return launch_split<T, 3>(xx, ss, oo, M, D, eps, warps, rows, st);
+    case 4: return launch_split<T, 4>(xx, ss, oo, M, D, eps, warps, rows, st);
+    case 8:
+      if (warps != 1) return (int)cudaErrorInvalidValue;
+      return launch_split<T, 8>(xx, ss, oo, M, D, eps, warps, rows, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -367,20 +329,17 @@ int run(const void* x, const void* scale, void* out, int M, int D, float eps, in
 // are allowed: D a multiple of 16 / itemsize and x, scale and out on 16-byte
 // boundaries. route 0 takes the loop (vec or not); 1 the register route with
 // `vectors` in {1, 2, 4, 8} 16-byte vectors a lane (D <= 32 * vectors * 16 /
-// itemsize); 2 the split route: `warps` (G) warps a row in a block, `vectors`
-// in 1..4, `rows` rows a block (G x rows <= 32), `csize` blocks a row in a
-// cluster (1..8; rows 1 if more than 1), 32 x G x csize x vectors vectors
-// covering D. Both of the last need vec. Returns 0 or the CUDA error code of
-// a refused or failed launch.
+// itemsize); 2 the split route, which needs vec: `warps` (G) warps a row,
+// `vectors` in {1, 2, 3, 4} (or 8 at G = 1), 32 x G x vectors vectors
+// covering D, `rows` rows a block (G x rows <= 32). Returns 0 or the CUDA
+// error code of a refused or failed launch.
 extern "C" int rmsnorm_f32(const void* x, const void* scale, void* out, int M, int D, float eps,
-                           int vec, int route, int vectors, int warps, int rows, int csize,
-                           void* stream) {
-  return run<float>(x, scale, out, M, D, eps, vec, route, vectors, warps, rows, csize, stream);
+                           int vec, int route, int vectors, int warps, int rows, void* stream) {
+  return run<float>(x, scale, out, M, D, eps, vec, route, vectors, warps, rows, stream);
 }
 
 extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out, int M, int D,
                             float eps, int vec, int route, int vectors, int warps, int rows,
-                            int csize, void* stream) {
-  return run<__nv_bfloat16>(x, scale, out, M, D, eps, vec, route, vectors, warps, rows, csize,
-                            stream);
+                            void* stream) {
+  return run<__nv_bfloat16>(x, scale, out, M, D, eps, vec, route, vectors, warps, rows, stream);
 }

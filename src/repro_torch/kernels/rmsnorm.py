@@ -17,62 +17,58 @@ from . import build
 
 DTYPES = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_float) + (ctypes.c_int,) * 6
+                                      ctypes.c_float) + (ctypes.c_int,) * 5
 ROUTES = {"loop": 0, "regs": 1, "split": 2}
-REGISTER_VECTORS = (1, 2, 4, 8)
-SPLIT_VECTORS = 4      # most 16-byte vectors a lane on the split route
+REGISTER_VECTORS = (1, 2, 4, 8)  # R on the register route, and at G = 1
+SPLIT_VECTORS = (1, 2, 3, 4)     # R on the split route at G > 1
+PREFILL_VECTORS = 4    # most 16-byte vectors a lane past the register route
 DECODE_VECTORS = 2     # ... at fewer rows than SMs: more warps, loads out at once
 MAX_WARPS = 32         # a block on the split route
-MAX_CLUSTER = 8        # blocks a row on the split route
-IN_FLIGHT = 32 * 1024  # bytes of x a prefill block's rows load at once
 H100_SMS = 132
 
 
 class Plan(NamedTuple):
     """How a call is laid out on the card: ``route`` ("regs", "split" or
-    "loop"), ``warps`` a row in a block (G), 16-byte ``vectors`` a lane
-    (R; 0 on the loop route), ``rows`` a block and ``cluster`` blocks a
-    row."""
+    "loop"), ``warps`` a row (G), 16-byte ``vectors`` a lane (R; 0 on the
+    loop route) and ``rows`` a block."""
     route: str
     warps: int
     vectors: int
     rows: int
-    cluster: int = 1
 
 
 def plan(M: int, D: int, itemsize: int, vec: bool,
          sms: int = H100_SMS) -> Plan:
     """The layout of an (M, D) call of ``itemsize``-byte values; ``vec``
     says 16-byte loads are allowed (D a multiple of 16 / itemsize, every
-    pointer on a 16-byte boundary).
+    pointer on a 16-byte boundary). Prefill is at least as many rows as
+    the card has SMs, a decode step fewer.
 
     - Rows that cannot take 16-byte loads: the loop, element-wise.
-    - Rows of up to 32 x 8 vectors (2,048 bf16, 1,024 f32): the register
-      route, one warp a row, the least R in :data:`REGISTER_VECTORS` that
-      holds it, eight rows a block.
-    - Wider rows: the split route, G warps a row with R <= 4 vectors a
-      lane. With at least as many rows as SMs (prefill), the fewest warps
-      with R <= :data:`SPLIT_VECTORS`, and rows a block enough for about
-      :data:`IN_FLIGHT` bytes of loads (the block persistent over row
-      groups); with fewer (decode), R <= :data:`DECODE_VECTORS` and one row
-      a block, so a row's loads go out over more lanes at once.
+    - Rows of up to 32 x 8 vectors (2,048 bf16, 1,024 f32), with R the
+      least in :data:`REGISTER_VECTORS` that holds the row: at a decode
+      step the register route, one warp a row, eight rows a block; at
+      prefill the split route at one warp a row (G = 1, the same sums in
+      the same order, so the same bits), eight rows a block.
+    - Wider rows: the split route with the fewest warps a row for R <=
+      :data:`PREFILL_VECTORS` at prefill and R <= :data:`DECODE_VECTORS`
+      at a decode step (R <= 4 where 32 warps need it), one row a block.
+      At prefill a block of 5-8 warps keeps 36 or more warps (6 rows) an
+      SM loading, and the grid persists over the rows.
     - Rows past 32 x 32 x 4 vectors (32,768 bf16): the loop.
     """
     if not vec:
         return Plan("loop", 1, 0, 8)
     V = -(-D // (16 // itemsize))
-    if V <= 32 * REGISTER_VECTORS[-1]:
-        return Plan("regs", 1, next(r for r in REGISTER_VECTORS
-                                    if 32 * r >= V), 8)
     decode = M < sms
-    for most in ((DECODE_VECTORS, SPLIT_VECTORS) if decode
-                 else (SPLIT_VECTORS,)):
+    if V <= 32 * REGISTER_VECTORS[-1]:
+        R = next(r for r in REGISTER_VECTORS if 32 * r >= V)
+        return Plan("regs" if decode else "split", 1, R, 8)
+    for most in ((DECODE_VECTORS, PREFILL_VECTORS) if decode
+                 else (PREFILL_VECTORS,)):
         G = -(-V // (32 * most))
         if G <= MAX_WARPS:
-            R = -(-V // (32 * G))
-            rows = 1 if decode else max(1, min(
-                MAX_WARPS // G, -(-IN_FLIGHT // (D * itemsize))))
-            return Plan("split", G, R, rows)
+            return Plan("split", G, -(-V // (32 * G)), 1)
     return Plan("loop", 1, 0, 8)
 
 
@@ -82,11 +78,10 @@ def _check(p: Plan, D: int, itemsize: int, vec: bool) -> None:
     ok = {"loop": lambda: True,
           "regs": lambda: vec and p.vectors in REGISTER_VECTORS
           and 32 * p.vectors >= V,
-          "split": lambda: vec and 1 <= p.vectors <= SPLIT_VECTORS
-          and p.warps >= 1 and p.rows >= 1 and p.warps * p.rows <= MAX_WARPS
-          and 1 <= p.cluster <= MAX_CLUSTER
-          and (p.cluster == 1 or p.rows == 1)
-          and 32 * p.warps * p.cluster * p.vectors >= V}
+          "split": lambda: vec and p.warps >= 1 and p.rows >= 1
+          and p.warps * p.rows <= MAX_WARPS
+          and (p.vectors in SPLIT_VECTORS or p.warps == 1 and p.vectors == 8)
+          and 32 * p.warps * p.vectors >= V}
     if p.route not in ok or not ok[p.route]():
         raise ValueError(f"rmsnorm kernel does not take {p} at D={D}, "
                          f"itemsize {itemsize}, 16-byte loads {vec}")
@@ -130,5 +125,5 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
     build.launch(build.entry(DTYPES[x.dtype], _ARGTYPES), x.device,
                  xm.data_ptr(), scale.data_ptr(), out.data_ptr(), M, D,
                  float(eps), int(vec), ROUTES[layout.route], layout.vectors,
-                 layout.warps, layout.rows, layout.cluster)
+                 layout.warps, layout.rows)
     return out.reshape(x.shape)

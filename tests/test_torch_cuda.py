@@ -1198,29 +1198,51 @@ _BF, _F32 = torch.bfloat16, torch.float32
     (_BF, (2048, 6144), ("split", 12, 2, 1)),
     (_BF, (2048, 6144), ("split", 8, 3, 4)),
     (_BF, (2048, 6144), ("split", 24, 1, 1)),
+    (_BF, (2048, 6144), ("split", 6, 4, 3)),
     (_BF, (2, 6144), ("split", 6, 4, 1)),
-    (_BF, (2, 6144), ("split", 6, 2, 1, 2)),
-    (_BF, (4, 6144), ("split", 3, 2, 1, 4)),
-    (_BF, (3, 6152), ("split", 2, 4, 1, 8)),
+    (_BF, (3, 6152), ("split", 7, 4, 1)),
+    (_BF, (3, 6152), ("split", 25, 1, 1)),
     (_BF, (4096, 2048), ("split", 2, 4, 8)),
-    (_BF, (4, 5120), ("split", 5, 2, 1, 2)),
-    (_BF, (300, 5120), ("split", 1, 4, 1, 5)),
+    (_BF, (4095, 1600), ("split", 1, 8, 4)),
+    (_BF, (300, 5120), ("split", 5, 4, 2)),
+    (_BF, (8, 960), ("split", 1, 4, 8)),
     (_BF, (4096, 2048), ("regs", 1, 8, 8)),
     (_BF, (8, 6144), ("loop", 1, 0, 8)),
     (_F32, (2048, 6144), ("split", 24, 2, 1)),
-    (_F32, (2, 6144), ("split", 12, 2, 1, 2)),
+    (_F32, (2, 6144), ("split", 12, 4, 1)),
     (_F32, (1000, 2048), ("split", 4, 4, 8))])
 def test_rmsnorm_forced_layouts_match_plain(cuda, shape, layout, dtype):
     """Every layout the split route takes (G warps a row, R vectors a
-    lane, rows a block, clusters of 2-8 blocks a row, a persistent grid),
-    forced through ``layout``, is held as the plan's own and repeats bit
-    for bit."""
+    lane, rows a block, a persistent grid, rows not filling the last
+    block), forced through ``layout``, is held as the plan's own and
+    repeats bit for bit."""
     x = randn(shape, dtype, 5, cuda, 3.0)
     s = randn(shape[-1:], dtype, 6, cuda)
     p = krms.Plan(*layout)
     got = krms.rmsnorm(x, s, layout=p)
     assert_serve_close("rmsnorm", got, ref.rmsnorm_ref(x, s))
     assert torch.equal(got, krms.rmsnorm(x, s, layout=p))
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (_BF, (8192, 960)), (_BF, (8192, 1600)), (_BF, (4096, 2048)),
+    (_BF, (8, 960)), (_BF, (4, 1600)), (_BF, (37, 264)),
+    (_F32, (8192, 960)), (_F32, (4096, 1024)), (_F32, (4, 800)),
+    (_F32, (5, 8))])
+def test_rmsnorm_split_at_one_warp_is_the_register_route(cuda, shape, dtype):
+    """Rows of up to 2,048 bf16 or 1,024 f32 take the split route at one
+    warp a row at prefill and the register route at a decode step: the two
+    give the same bits (the same vectors a lane, summed in the same
+    order), so SmolLM-360M's, Hymba-1.5B's and Qwen1.5-MoE's outputs do
+    not depend on which one a call takes."""
+    x = randn(shape, dtype, 7, cuda, 3.0)
+    s = randn(shape[-1:], dtype, 8, cuda)
+    V = shape[-1] * x.element_size() // 16
+    R = next(r for r in krms.REGISTER_VECTORS if 32 * r >= V)
+    regs = krms.rmsnorm(x, s, layout=krms.Plan("regs", 1, R, 8))
+    for rows in (1, 8):
+        assert torch.equal(
+            krms.rmsnorm(x, s, layout=krms.Plan("split", 1, R, rows)), regs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

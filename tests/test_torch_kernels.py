@@ -724,7 +724,8 @@ def test_flash_attention_tma_describes_model_views(hd):
 # the loop, now for the split route), and rows without 16-byte loads take
 # the element-wise loop. Then the serves' shapes, prefill and decode, in
 # bf16 and f32: SmolLM-360M, Hymba-1.5B, Qwen1.5-MoE, Llama-4-Scout and
-# InternVL2-26B.
+# InternVL2-26B; at prefill rows up to 2,048 bf16 take the split route at
+# one warp a row with the register route's R.
 RMSNORM_PLANS = [
     ((8, 960, 2, True), ("regs", 1, 4, 8)),
     ((8, 1600, 2, True), ("regs", 1, 8, 8)),
@@ -737,28 +738,29 @@ RMSNORM_PLANS = [
     ((8, 1024, 4, True), ("regs", 1, 8, 8)),
     ((8, 1028, 4, True), ("split", 5, 2, 1)),
     ((8, 64, 4, True), ("regs", 1, 1, 8)),
-    ((8192, 960, 2, True), ("regs", 1, 4, 8)),
+    ((8192, 960, 2, True), ("split", 1, 4, 8)),
     ((8, 960, 2, True), ("regs", 1, 4, 8)),
-    ((8192, 1600, 2, True), ("regs", 1, 8, 8)),
+    ((8192, 1600, 2, True), ("split", 1, 8, 8)),
     ((4, 1600, 2, True), ("regs", 1, 8, 8)),
-    ((4096, 2048, 2, True), ("regs", 1, 8, 8)),
+    ((4096, 2048, 2, True), ("split", 1, 8, 8)),
     ((4, 2048, 2, True), ("regs", 1, 8, 8)),
-    ((4096, 5120, 2, True), ("split", 5, 4, 4)),
+    ((4096, 5120, 2, True), ("split", 5, 4, 1)),
     ((4, 5120, 2, True), ("split", 10, 2, 1)),
-    ((2048, 6144, 2, True), ("split", 6, 4, 3)),
+    ((2048, 6144, 2, True), ("split", 6, 4, 1)),
     ((2, 6144, 2, True), ("split", 12, 2, 1)),
-    ((8192, 960, 4, True), ("regs", 1, 8, 8)),
+    ((8192, 960, 4, True), ("split", 1, 8, 8)),
     ((8, 960, 4, True), ("regs", 1, 8, 8)),
-    ((8192, 1600, 4, True), ("split", 4, 4, 6)),
+    ((8192, 1600, 4, True), ("split", 4, 4, 1)),
     ((4, 1600, 4, True), ("split", 7, 2, 1)),
-    ((4096, 2048, 4, True), ("split", 4, 4, 4)),
+    ((4096, 2048, 4, True), ("split", 4, 4, 1)),
     ((4, 2048, 4, True), ("split", 8, 2, 1)),
-    ((4096, 5120, 4, True), ("split", 10, 4, 2)),
+    ((4096, 5120, 4, True), ("split", 10, 4, 1)),
     ((4, 5120, 4, True), ("split", 20, 2, 1)),
-    ((2048, 6144, 4, True), ("split", 12, 4, 2)),
+    ((2048, 6144, 4, True), ("split", 12, 4, 1)),
     ((2, 6144, 4, True), ("split", 24, 2, 1)),
     # a ragged vector count; rows off 16-byte loads (D off, or a view off
-    # a 16-byte boundary); past the split route's 32 x 32 x 4 vectors
+    # a 16-byte boundary); up to and past the split route's 32 x 32 x 4
+    # vectors (at a decode step R 4 where 32 warps of R 2 fall short)
     ((3, 6152, 2, True), ("split", 13, 2, 1)),
     ((2, 6150, 2, False), ("loop", 1, 0, 8)),
     ((2, 6144, 2, False), ("loop", 1, 0, 8)),
@@ -771,44 +773,46 @@ RMSNORM_PLANS = [
 @pytest.mark.parametrize("case,want", RMSNORM_PLANS)
 def test_rmsnorm_plan(case, want):
     """Each call's layout: the route, G warps a row, R 16-byte vectors a
-    lane and rows a block. G x 32 x R vectors cover the row, R <= 4 on the
-    split route (R <= 2 at fewer rows than SMs where 32 warps allow it, one
-    row a block there),
-    a block is at most 1,024 threads, and the register route keeps the
-    least R that holds the row."""
+    lane and rows a block. G x 32 x R vectors cover the row and a block is
+    at most 1,024 threads. Rows of up to 2,048 bf16 or 1,024 f32 keep the
+    register route's least R, on that route at a decode step and at G = 1
+    of the split route at prefill; wider rows take R <= 4 with no lane's
+    last vector idle (R <= 2 at fewer rows than SMs where 32 warps allow
+    it), one row a block; rows without 16-byte loads take the loop."""
     from repro_torch.kernels import rmsnorm as krms
     M, D, itemsize, vec = case
     p = krms.plan(M, D, itemsize, vec)
-    assert (p.route, p.warps, p.vectors, p.rows) == want and p.cluster == 1
-    assert p.warps * p.rows * p.cluster * 32 <= 1024
+    assert p == krms.Plan(*want)
+    assert p.warps * p.rows * 32 <= 1024
     krms._check(p, D, itemsize, vec)
     V = D * itemsize // 16
+    decode = M < krms.H100_SMS
     if not vec:
         assert p.route == "loop"
-    elif p.route == "regs":
-        assert p.warps == 1 and D * itemsize <= 32 * 8 * 16
+    elif V <= 32 * 8:
+        assert p.route == ("regs" if decode else "split") and p.warps == 1
         assert min(r for r in krms.REGISTER_VECTORS if 32 * r >= V) \
             == p.vectors
     elif p.route == "split":
-        assert p.warps * p.cluster * 32 * p.vectors >= V
-        assert p.warps * 32 * (p.vectors - 1) < V   # no idle vector slot
-        assert 1 <= p.vectors <= 4 and D * itemsize > 32 * 8 * 16
-        if M < krms.H100_SMS:      # R past 2 only where 32 warps need it
-            assert (p.vectors <= 2 or V > 32 * 32 * 2) and p.rows == 1
+        assert p.warps * 32 * p.vectors >= V > p.warps * 32 * (p.vectors - 1)
+        assert 1 <= p.vectors <= 4 and p.rows == 1
+        if decode:                # R past 2 only where 32 warps need it
+            assert p.vectors <= 2 or V > 32 * 32 * 2
     else:
-        assert V > 32 * 32 * 4
+        assert p.route == "loop" and V > 32 * 32 * 4
 
 
 @pytest.mark.parametrize("layout,D,itemsize,vec", [
     (("regs", 1, 4, 8), 1032, 2, True),          # 4 vectors a lane short
     (("regs", 1, 3, 8), 768, 2, True),           # R not a power of two
     (("regs", 1, 8, 8), 960, 2, False),          # no 16-byte loads
-    (("split", 6, 4, 3), 6144, 2, False),
-    (("split", 5, 4, 3), 6144, 2, True),         # 640 of 768 vectors
-    (("split", 3, 8, 1), 6144, 2, True),         # R past 4
+    (("split", 6, 4, 1), 6144, 2, False),
+    (("split", 5, 4, 1), 6144, 2, True),         # 640 of 768 vectors
+    (("split", 3, 8, 1), 6144, 2, True),         # R 8 past one warp a row
+    (("split", 2, 16, 1), 6144, 2, True),        # R past 8
+    (("split", 1, 5, 8), 640, 2, True),          # R 5
     (("split", 12, 2, 3), 6144, 2, True),        # 36 warps a block
-    (("split", 6, 4, 3, 2), 6144, 2, True),      # a cluster of many rows
-    (("split", 3, 2, 1, 16), 6144, 2, True),     # a cluster past 8
+    (("split", 1, 8, 0), 2048, 2, True),         # no rows
     (("warp", 1, 4, 8), 960, 2, True)])
 def test_rmsnorm_refuses_a_forced_layout_it_cannot_take(layout, D, itemsize,
                                                          vec):

@@ -17,9 +17,9 @@ lines (``flash_attention`` at SmolLM-360M's and Hymba-1.5B's prefill,
 ``rmsnorm`` at prefill and at a decode step, ``swiglu`` at both models'
 prefill and decode step, ``mlstm_scan`` at xLSTM-125M's and Hymba-1.5B's
 prefill in bf16 with the route it takes, through ``scan_timing``),
-``rmsnorm`` at ``FAMILY_NORM``'s prefill and decode shapes (phase 14's
-``family_norm_timing``, beside ``F.rms_norm``, with the layout each call
-takes), and the device time of one call of each shape split by kernel
+``rmsnorm`` at ``FAMILY_NORM``'s and Hymba-1.5B's prefill and decode
+shapes (phase 14's ``family_norm_timing`` and ``norm_timing``, beside
+``F.rms_norm``, with the layout each call takes), and the device time of one call of each shape split by kernel
 name (``torch.profiler``, CUDA activity, 10 calls). With ``--outputs
 DIR`` it saves this tree's outputs of the four kernels on seeded inputs
 there (``rmsnorm`` at SmolLM-360M's, Hymba-1.5B's and ``FAMILY_NORM``'s
@@ -31,10 +31,11 @@ whether they are ``torch.equal`` to those every other tree saved in
 take about 300 MB a tree). ``--sweep`` times every ``swiglu`` kernel that
 takes the operands at both models' D and F over M from 1 to 128 (this
 tree only; it picks the rows where the decode route ends). ``--layouts``
-times ``rmsnorm`` at ``FAMILY_NORM``'s shapes in every layout the split
-route takes near its plan (G warps a row, R vectors a lane, rows a
-block, clusters of 2 and 4 blocks a row at decode), forced through the
-wrapper's ``layout`` (this tree only; it sets ``rmsnorm.plan``).
+times ``rmsnorm`` at ``FAMILY_NORM``'s and at SmolLM-360M's and
+Hymba-1.5B's shapes (and InternVL2-26B's D at 4 x its prefill rows) in
+every layout the split route takes near its plan (G warps a row, R
+vectors a lane, rows a block), forced through the wrapper's ``layout``,
+twice each (this tree only; it set ``rmsnorm.plan``).
 ``--scan-accuracy`` does none of that: it holds the tree's
 ``mlstm_scan`` to its plain version over phase 21's cases
 (``chip_smoke.scan_comparisons``, with the inputs that need all three
@@ -113,7 +114,14 @@ def main() -> int:
     for line in cs.serve_timing(timed) + cs.scan_timing(timed):
         print(f"[bench] {line}", flush=True)
     timed["rmsnorm_families"] = fam = cs.family_norm_timing()
-    for arch, t0 in fam.items():
+    gh = torch.Generator(device="cuda").manual_seed(31)
+    (m, D), (mb, _) = NORM["hymba-1.5b prefill"], NORM["hymba-1.5b decode"]
+    hx = lambda *shape: torch.randn(*shape, generator=gh,
+                                    device="cuda").to(torch.bfloat16)
+    scale = hx(D)
+    timed["rmsnorm_hymba"] = {**cs.norm_timing(hx(m, D), scale),
+                              "at_decode": cs.norm_timing(hx(mb, D), scale)}
+    for arch, t0 in {**fam, "hymba-1.5b": timed["rmsnorm_hymba"]}.items():
         for t in (t0, t0["at_decode"]):
             print(f"[bench] rmsnorm at {arch}'s {t['shape']} bf16, layout "
                   f"{t['layout']}: kernel {t['ms']:.4f} ms, plain "
@@ -195,12 +203,14 @@ def main() -> int:
 
 
 def norm_layouts(cs, rn) -> dict:
-    """``rmsnorm`` in bf16 at each FAMILY_NORM shape and at SmolLM-360M's
-    and Hymba-1.5B's, in its plan's layout and in the split route's others
-    near it: at prefill the fewest warps a row for R = 4, 3 and 2 vectors
-    a lane, each at 1 to 8 rows a block; at decode R = 1, 2 and 4 at one
-    block a row and in clusters of 2 and 4 blocks a row. Each timed by
-    ``time_ms`` beside ``F.rms_norm``."""
+    """``rmsnorm`` in bf16 at each FAMILY_NORM shape, at SmolLM-360M's and
+    Hymba-1.5B's, and at InternVL2-26B's D with 4 x its prefill rows (100
+    MB, which no L2 holds across the graph's calls), in its plan's layout
+    and in the split route's others near it: for each R (1, 2, 3, 4, and 8
+    at one warp a row where that holds the row) the fewest warps a row,
+    each at 1, 2, 4 and 8 rows a block (at most 32 warps). Each timed
+    twice by ``time_ms``, in two passes over the layouts, beside
+    ``F.rms_norm``; returns the pair for each."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as krms
@@ -208,29 +218,36 @@ def norm_layouts(cs, rn) -> dict:
     shapes = [(arch, kind, m, D) for arch, (B, S, D) in cs.FAMILY_NORM.items()
               for kind, m in (("prefill", B * S), ("decode", B))]
     shapes += [(*name.split(), m, D) for name, (m, D) in NORM.items()]
+    B, S, D = cs.FAMILY_NORM["internvl2-26b"]
+    shapes.append(("internvl2-26b", "prefill-x4", 4 * B * S, D))
     found = {}
     for arch, kind, m, D in shapes:
         V, scale, x = D // 8, rn(D), rn(m, D)
         plan = krms.plan(m, D, 2, True, sms)
-        prefill = kind == "prefill"
         layouts = [plan]
-        for R in (4, 3, 2) if prefill else (1, 2, 4):
-            for c in (1,) if prefill else (1, 2, 4):
-                G = -(-V // (32 * R * c))
-                for rows in (1, 2, 3, 4, 6, 8) if prefill else (1,):
-                    p = krms.Plan("split", G, R, rows, c)
-                    if G * rows <= krms.MAX_WARPS and p not in layouts:
-                        layouts.append(p)
-        row = {"library_ms": cs.time_ms(
-            lambda: F.rms_norm(x, (D,), scale, 1e-6))}
-        for p in layouts:
-            row[" ".join(map(str, p))] = cs.time_ms(
-                lambda: krms.rmsnorm(x, scale, layout=p))
+        for R in (1, 2, 3, 4, 8):
+            G = -(-V // (32 * R))
+            for rows in (1, 2, 4, 8):
+                p = krms.Plan("split", G, R, rows)
+                if (G * rows <= krms.MAX_WARPS and (R < 8 or G == 1)
+                        and (G * 32 * (R - 1) < V or G == 1 and V <= 256)
+                        and p not in layouts):
+                    layouts.append(p)
+        row = {"library_ms": [], **{" ".join(map(str, p)): []
+                                    for p in layouts}}
+        for _ in range(2):
+            row["library_ms"].append(cs.time_ms(
+                lambda: F.rms_norm(x, (D,), scale, 1e-6)))
+            for p in layouts:
+                row[" ".join(map(str, p))].append(cs.time_ms(
+                    lambda: krms.rmsnorm(x, scale, layout=p)))
         found[f"{arch} {kind} ({m}, {D})"] = row
         print(f"[bench] rmsnorm layouts at {arch}'s {kind} ({m}, {D}), plan "
               f"{' '.join(map(str, plan))}: "
-              + ", ".join(f"{k} {t:.4f} ms" for k, t in row.items()),
+              + ", ".join(f"{k} {t[0]:.4f}/{t[1]:.4f} ms"
+                          for k, t in row.items()),
               flush=True)
+        del x
     return found
 
 
