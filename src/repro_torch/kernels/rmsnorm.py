@@ -53,8 +53,9 @@ def plan(M: int, D: int, itemsize: int, vec: bool,
     - Wider rows: the split route with the fewest warps a row for R <=
       :data:`PREFILL_VECTORS` at prefill and R <= :data:`DECODE_VECTORS`
       at a decode step (R <= 4 where 32 warps need it), one row a block.
-      At prefill a block of 5-8 warps keeps 36 or more warps (6 rows) an
-      SM loading, and the grid persists over the rows.
+      At prefill the kernel's 56 registers a thread let an SM hold 6-7
+      such blocks of 5-6 warps (about 36 warps loading), and the grid
+      persists over the rows.
     - Rows past 32 x 32 x 4 vectors (32,768 bf16): the loop.
     """
     if not vec:
