@@ -1,0 +1,6 @@
+"""Share of the traced window in which no operation ran on the device."""
+from portbench.metrics._read import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
